@@ -1,0 +1,51 @@
+"""Functional layers, NCHW logical tensors (counterpart of
+footprints_tpu/nn/layers.py).
+
+Contracts, each tested against the JAX package in tests/test_torch_layers.py:
+  * conv2d           == torch.nn.Conv2d (same stride/padding)
+  * batch_norm       == torch.nn.BatchNorm2d in eval mode (running stats)
+  * reflect_pad      == torch.nn.ReflectionPad2d
+  * max_pool_3x3_s2  == torch.nn.MaxPool2d(3, 2, padding=1)
+  * upsample_nearest == F.interpolate(mode='nearest', scale_factor=k)
+  * upsample_bilinear== F.interpolate(mode='bilinear', align_corners=False)
+  * elu              == torch.nn.ELU (alpha=1)
+
+The model keeps activations in ``torch.channels_last`` memory, so these
+NCHW views hold NHWC bytes; every function here accepts either format.
+"""
+
+import torch.nn.functional as F
+
+conv2d = F.conv2d
+
+
+def batch_norm(x, weight, bias, running_mean, running_var, eps=1e-5):
+    """Eval-mode BatchNorm over N,H,W with the running statistics."""
+    return F.batch_norm(x, running_mean, running_var, weight, bias,
+                        training=False, eps=eps)
+
+
+def reflect_pad(x, pad=1):
+    """Reflection padding of the two spatial dims."""
+    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+
+
+def max_pool_3x3_s2(x):
+    """3x3/stride-2/pad-1 max pool (the ResNet stem pool)."""
+    return F.max_pool2d(x, 3, stride=2, padding=1)
+
+
+def upsample_nearest(x, scale=2):
+    """Integer-factor nearest-neighbour upsample (pixel replication)."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def upsample_bilinear(x, scale):
+    """Bilinear upsample with half-pixel centres (align_corners=False)."""
+    return F.interpolate(x, scale_factor=scale, mode="bilinear",
+                         align_corners=False)
+
+
+elu = F.elu
+relu = F.relu
+sigmoid = F.sigmoid

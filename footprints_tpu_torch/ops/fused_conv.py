@@ -1,0 +1,134 @@
+"""Fused pad -> 3x3 conv -> bias -> [residual] -> activation (counterpart of
+footprints_tpu/ops/pallas_conv.py).
+
+``fused_conv3x3`` is the wrapper of the hand-written CUDA kernel in
+``csrc/fused_conv3x3.cu``.  On a CUDA tensor it launches the kernel (or
+raises); only for a CPU tensor does it run ``fused_conv3x3_plain``, the
+plain PyTorch version of the same function.  ``fused_conv3x3.launches``
+counts kernel launches, so a run can show that the decoder went through the
+kernel.
+
+Layout: activations are NHWC-contiguous ``[N,H,W,C]`` (the model's
+channels_last NCHW tensors permuted, a view), weights are the
+``nn.Conv2d`` OIHW ``[Co,Ci,3,3]``, contiguous.
+
+pad_mode:
+  * ``'reflect'``      conv3x3(reflect_pad(x, 1)); output [N,H,W,Co]
+  * ``'up2_reflect'``  conv3x3(reflect_pad(nearest_up_2x(x), 1)); input
+    [N,Hi,Wi,Ci], output [N,2Hi,2Wi,Co].  Neither the upsampled nor the
+    padded tensor is materialised: output row i, tap dy reads low-res row
+    clamp(floor((i+dy-1)/2), 0, Hi-1) (the edge-pad identity of
+    footprints_tpu/ops/upconv.py).
+act: ``'elu'`` or ``'none'``; the optional residual [N,Ho,Wo,Co] is added
+before it.  f32 (true f32 FMA, no TF32) and bf16 I/O; f32 accumulation.
+
+No backward yet: the wrappers refuse inputs that need a gradient.  The
+training slice adds ``torch.autograd.Function``s.
+"""
+
+import ctypes
+
+import torch
+
+from ..nn.layers import conv2d, elu, reflect_pad, upsample_nearest
+
+PAD_MODES = ("reflect", "up2_reflect")
+ACTS = ("none", "elu")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_conv3x3_plain(x, w, b=None, residual=None, *, pad_mode, act):
+    """Plain PyTorch version of the kernel: same contract, NHWC in and out."""
+    xc = x.permute(0, 3, 1, 2)
+    if pad_mode == "up2_reflect":
+        xc = upsample_nearest(xc, 2)
+    y = conv2d(reflect_pad(xc, 1), w, b)
+    if residual is not None:
+        y = y + residual.permute(0, 3, 1, 2)
+    if act == "elu":
+        y = elu(y)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _check(x, w, b, residual, pad_mode, act):
+    if pad_mode not in PAD_MODES:
+        raise ValueError(f"pad_mode must be one of {PAD_MODES}, got {pad_mode!r}")
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_conv3x3 takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous NHWC tensor, got shape "
+                         f"{tuple(x.shape)} strides {x.stride()}")
+    n, h, w_, ci = x.shape
+    if pad_mode == "reflect" and (h < 2 or w_ < 2):
+        raise ValueError(f"reflect padding needs H, W >= 2, got {h}x{w_}")
+    if w.dim() != 4 or w.shape[1:] != (ci, 3, 3) or not w.is_contiguous():
+        raise ValueError(f"w must be a contiguous OIHW [Co,{ci},3,3] tensor, got "
+                         f"shape {tuple(w.shape)} strides {w.stride()}")
+    co = w.shape[0]
+    ho, wo = (h, w_) if pad_mode == "reflect" else (2 * h, 2 * w_)
+    named = [("w", w, (co, ci, 3, 3))]
+    if b is not None:
+        named.append(("b", b, (co,)))
+    if residual is not None:
+        named.append(("residual", residual, (n, ho, wo, co)))
+    for name, t, shape in named:
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous with shape {shape}, got "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; x is "
+                             f"{x.dtype} on {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for _, t, _ in named + [("x", x, None)]):
+        raise RuntimeError("fused_conv3x3 has no backward yet; call it under "
+                           "torch.no_grad() or torch.inference_mode()")
+    return n, h, w_, ci, ho, wo, co
+
+
+def fused_conv3x3(x, w, b=None, residual=None, *, pad_mode, act):
+    """act(conv3x3(pad(x), w) + b [+ residual]), NHWC; see the module doc."""
+    n, h, w_, ci, ho, wo, co = _check(x, w, b, residual, pad_mode, act)
+    if x.device.type == "cpu":
+        return fused_conv3x3_plain(x, w, b, residual, pad_mode=pad_mode, act=act)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv3x3 runs on cuda or cpu, not {x.device}")
+    from .build import load_library
+
+    lib = load_library()
+    y = torch.empty((n, ho, wo, co), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_conv3x3_launch(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+            None if b is None else b.data_ptr(),
+            None if residual is None else residual.data_ptr(), y.data_ptr(),
+            n, h, w_, ci, ho, wo, co, PAD_MODES.index(pad_mode),
+            ACTS.index(act), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"fused_conv3x3 launch failed: CUDA error {err}")
+    fused_conv3x3.launches += 1
+    return y
+
+
+fused_conv3x3.launches = 0
+
+
+# The three wrappers mirror the JAX package's one for one
+# (footprints_tpu/ops/pallas_conv.py: up_conv_s2d_fused, s2d_conv_res_fused,
+# s2d_conv_fused), in plain full-resolution NHWC instead of s2d layout.
+
+def up_conv_fused(x, w, b, act="elu"):
+    """act(conv3x3(reflect_pad(nearest_up_2x(x))) + b): [N,H,W,C] -> [N,2H,2W,Co]."""
+    return fused_conv3x3(x, w, b, pad_mode="up2_reflect", act=act)
+
+
+def conv_reflect_fused(x, w, b, act="elu"):
+    """act(conv3x3(reflect_pad(x)) + b)."""
+    return fused_conv3x3(x, w, b, pad_mode="reflect", act=act)
+
+
+def conv_reflect_res_fused(x, w, b, residual, act="elu"):
+    """act(conv3x3(reflect_pad(x)) + b + residual) (block4 post conv1)."""
+    return fused_conv3x3(x, w, b, residual, pad_mode="reflect", act=act)
