@@ -21,11 +21,18 @@ final result line:
               within MAE 1e-4 of its CPU twin, that the kernel ran 10 times
               per GPU batch, and that the GPU forward matches the CPU forward
               (MAE < 1e-4 at every scale);
-  5. times    CUDA-event times of the kernel, its plain version and the
-              cuDNN conv at each site beside the least time the card could
-              take (an up site counted at the 4 taps per output its function
-              needs), the serving forward's imgs/s at batch 16 and the
-              single-image p50;
+  5. times    at each site, the mean time per call over 20 eager calls
+              (CUDA events, the method of the port's first kernel) of the
+              kernel (f32 on the 3xTF32 tensor-core route, bf16 on the bf16
+              one), its plain version and the cuDNN conv, and the kernel's
+              device time alone (graph_ms: the mean over 3 replays of 20
+              calls captured in a CUDA graph), beside the least time the
+              card could take (an up site
+              counted at the 4 taps per output its function needs):
+              bound_ffma_ms at the f32 FMA peak, bound_tc_ms with 3 TF32
+              products per MAC (bf16: 1 bf16 product) at the tensor-core
+              peak, each at least the site's bytes at the HBM rate; then the
+              serving forward's imgs/s at batch 16 and the single-image p50;
   6. profile  torch.profiler device time by kernel over the batch-16
               forward, the idle share, and the full table in
               smoke_out/profile_b16.json.
@@ -62,10 +69,14 @@ KERNEL = {
     "source": "footprints_tpu_torch/csrc/fused_conv3x3.cu",
     "replaces": "footprints_tpu/ops/pallas_conv.py:110",
 }
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): f32 outside the
-# tensor cores, and HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): f32 outside
+# the tensor cores, TF32 and bf16 on them, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+TF32_PRODUCTS_PER_MAC = 3  # the f32 route's 3xTF32 split
+ROUTES = {torch.float32: "mma_tf32x3", torch.bfloat16: "mma_bf16"}
 LAUNCHES_PER_FORWARD = 10  # 5 sites x 2 decoders
 
 
@@ -95,19 +106,28 @@ def sites(batch):
 
 
 def site_inputs(site, dtype, seed):
-    _, pad_mode, shape, co, with_res, with_bias, _ = site
+    """Seeded (x, w, b, residual) on the card.  block4's two conv1 halves get
+    w as an input-channel slice view of one contiguous [Co, 2Ci, 3, 3]
+    weight (up half first), as nn/blocks.py passes them."""
+    name, pad_mode, shape, co, with_res, with_bias, _ = site
     g = torch.Generator().manual_seed(seed)
     n, h, w_, ci = shape
     ho, wo = (h, w_) if pad_mode == "reflect" else (2 * h, 2 * w_)
+    halves = name.startswith("block4.post.conv1.")
     x = torch.randn(shape, generator=g)
-    w = torch.randn(co, ci, 3, 3, generator=g) / (3 * ci ** 0.5)
+    w = torch.randn(co, 2 * ci if halves else ci, 3, 3, generator=g) / (3 * ci ** 0.5)
     b = torch.randn(co, generator=g) if with_bias else None
     r = torch.randn(n, ho, wo, co, generator=g) if with_res else None
-    return [None if t is None else t.to("cuda", dtype) for t in (x, w, b, r)]
+    x, w, b, r = [None if t is None else t.to("cuda", dtype) for t in (x, w, b, r)]
+    if halves:
+        w = w[:, :ci] if name.endswith("up_half") else w[:, ci:]
+    return x, w, b, r
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Mean device time of fn() over `iters` back-to-back calls (CUDA events)."""
+    """Mean time of fn() over `iters` back-to-back eager calls (CUDA events),
+    the method of the port's first kernel's times.  Where one call's device
+    work is shorter than its host work, this is the host's time per call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -121,28 +141,64 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=20, reps=3):
+    """Device time of one fn() call: `iters` calls captured in a CUDA graph,
+    each replay timed with CUDA events (host launch work excluded), the mean
+    over `reps` replays."""
+    fn()  # warm up outside the capture (builds, allocator)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.mean(times)
+
+
 def site_taps(pad_mode):
-    """(taps per output pixel the function needs, taps the kernel does).
+    """Taps per output pixel the function needs, which the kernel does:
     conv3x3(reflect_pad(nearest_up2(x))) is, for each of the 4 output
     phases, an exact 2x2 conv on the low-res input (the edge-pad identity),
-    so an up site needs 4 taps; the kernel does all 9 of the 3x3."""
-    return (9, 9) if pad_mode == "reflect" else (4, 9)
+    so an up site needs 4 taps."""
+    return 9 if pad_mode == "reflect" else 4
 
 
-def bound(site, x, w, b, r):
-    """(ms for its FLOP at the f32 FMA peak, ms for its bytes at the HBM
-    rate) of the work the site's function needs, each input read once and
-    the output written once.  The least time is the larger of the two."""
+def site_flops(site):
     _, pad_mode, (n, h, w_, ci), co, _, _, _ = site
+    outputs = n * h * w_ * (1 if pad_mode == "reflect" else 4)
+    return 2 * site_taps(pad_mode) * ci * co * outputs
+
+
+def bounds(site, x, w, b, r):
+    """Least times (ms) of the work the site's function needs in x's dtype,
+    each input read once and the output written once: {"ops_ffma_ms",
+    "ops_tc_ms", "bytes_ms"}.  f32 counts 3 TF32 products per MAC on the
+    tensor cores (the f32-accurate route); bf16 one bf16 product."""
+    _, pad_mode, (n, h, w_, _), co, _, _, _ = site
     ho, wo = (h, w_) if pad_mode == "reflect" else (2 * h, 2 * w_)
-    flops = 2 * site_taps(pad_mode)[0] * ci * co * n * ho * wo
+    flops = site_flops(site)
     nbytes = sum(t.numel() * t.element_size() for t in (x, w, b, r) if t is not None)
     nbytes += n * ho * wo * co * x.element_size()
-    return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    tc = (TF32_PRODUCTS_PER_MAC * flops / PEAK_TF32_FLOPS if x.dtype == torch.float32
+          else flops / PEAK_BF16_FLOPS)
+    return {"ops_ffma_ms": flops / PEAK_F32_FLOPS * 1e3, "ops_tc_ms": tc * 1e3,
+            "bytes_ms": nbytes / PEAK_BYTES * 1e3}
 
 
 def library_call(site, x, w, b):
-    """cuDNN F.conv2d(F.pad(...)) of the site (TF32 off): a yardstick only."""
+    """cuDNN F.conv2d(F.pad(...)) of the site (TF32 off) in x's dtype: a
+    yardstick only."""
     xc = x.permute(0, 3, 1, 2)
     if site[1] == "up2_reflect":
         xc = F.interpolate(xc, scale_factor=2, mode="nearest")
@@ -172,6 +228,7 @@ def phase_sites(fail):
             if dtype == torch.float32:
                 worst = max(worst, max_abs)
             emit("sites", site=name, dtype=str(dtype).replace("torch.", ""),
+                 route=ROUTES[dtype],
                  shape=list(x.shape), co=w.shape[0], max_abs_err=max_abs,
                  max_rel_err=max_rel, atol=tol, rtol=tol, ok=ok)
     return worst
@@ -261,33 +318,57 @@ def phase_main(fail, workdir):
 def phase_times(net):
     """Per-site times at the main path's batch of 4, then the forward.
     Returns the kernel's totals over one forward's 10 launches."""
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-              "ops_ms": 0.0, "bytes_ms": 0.0}
+    totals = {k: 0.0 for k in ("ms", "ms_bf16", "graph_ms", "graph_ms_bf16", "plain_ms",
+                               "library_ms", "library_ms_bf16", "bound_ms", "ops_ms",
+                               "bytes_ms", "bound_ffma_ms", "bound_tc_ms",
+                               "bound_tc_bf16_ms")}
     for si, site in enumerate(sites(batch=4)):
         name, pad_mode, _, _, _, _, act = site
         x, w, b, r = site_inputs(site, torch.float32, seed=200 + si)
         xb, wb, bb, rb = site_inputs(site, torch.bfloat16, seed=200 + si)
+        # the library call gets contiguous weights, made outside its timing
+        wc, wbc = w.contiguous(), wb.contiguous()
+
+        def kernel():
+            return fused_conv3x3(x, w, b, r, pad_mode=pad_mode, act=act)
+
+        def kernel_bf16():
+            return fused_conv3x3(xb, wb, bb, rb, pad_mode=pad_mode, act=act)
+
         with torch.no_grad():
-            t_kernel = time_ms(lambda: fused_conv3x3(x, w, b, r, pad_mode=pad_mode, act=act))
-            t_kernel_bf16 = time_ms(lambda: fused_conv3x3(xb, wb, bb, rb, pad_mode=pad_mode, act=act))
+            t_kernel = time_ms(kernel)
+            t_kernel_bf16 = time_ms(kernel_bf16)
+            t_graph = graph_ms(kernel)
+            t_graph_bf16 = graph_ms(kernel_bf16)
             t_plain = time_ms(lambda: fused_conv3x3_plain(x, w, b, r, pad_mode=pad_mode, act=act))
-            t_lib = time_ms(lambda: library_call(site, x, w, b))
-        t_ops, t_bytes = bound(site, x, w, b, r)
-        t_bound = max(t_ops, t_bytes)
-        n, h, w_, ci = x.shape
-        co = w.shape[0]
-        outputs = n * h * w_ * (1 if pad_mode == "reflect" else 4)
-        done_flops = 2 * site_taps(pad_mode)[1] * ci * co * outputs
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        for key, v in (("ms", t_kernel), ("plain_ms", t_plain),
-                       ("library_ms", t_lib), ("bound_ms", t_bound),
-                       ("ops_ms", t_ops), ("bytes_ms", t_bytes)):
+            t_lib = time_ms(lambda: library_call(site, x, wc, b))
+            t_lib_bf16 = time_ms(lambda: library_call(site, xb, wbc, bb))
+        f32, bf16 = bounds(site, x, w, b, r), bounds(site, xb, wb, bb, rb)
+        bound_ffma = max(f32["ops_ffma_ms"], f32["bytes_ms"])
+        bound_tc = max(f32["ops_tc_ms"], f32["bytes_ms"])
+        bound_tc_bf16 = max(bf16["ops_tc_ms"], bf16["bytes_ms"])
+        # the least time this card could take for the f32-accurate work
+        t_ops = min(f32["ops_ffma_ms"], f32["ops_tc_ms"])
+        t_bound = max(t_ops, f32["bytes_ms"])
+        bound_by = "operations" if t_ops >= f32["bytes_ms"] else "bytes"
+        for key, v in (("ms", t_kernel), ("ms_bf16", t_kernel_bf16),
+                       ("graph_ms", t_graph), ("graph_ms_bf16", t_graph_bf16),
+                       ("plain_ms", t_plain), ("library_ms", t_lib),
+                       ("library_ms_bf16", t_lib_bf16), ("bound_ms", t_bound),
+                       ("ops_ms", t_ops), ("bytes_ms", f32["bytes_ms"]),
+                       ("bound_ffma_ms", bound_ffma), ("bound_tc_ms", bound_tc),
+                       ("bound_tc_bf16_ms", bound_tc_bf16)):
             totals[key] += 2 * v  # the site runs once in each decoder
         emit("times", kernel=KERNEL["name"], site=name, shape=list(x.shape),
-             co=w.shape[0], launches_per_forward=2, ms=t_kernel,
-             ms_bf16=t_kernel_bf16, plain_ms=t_plain, library_ms=t_lib,
-             bound_ms=t_bound, bound_by=bound_by, share_of_bound=t_bound / t_kernel,
-             tflops_done=done_flops / (t_kernel * 1e-3) / 1e12)
+             co=w.shape[0], launches_per_forward=2, route=ROUTES[torch.float32],
+             ms=t_kernel, graph_ms=t_graph, plain_ms=t_plain, library_ms=t_lib,
+             bound_ffma_ms=bound_ffma, bound_tc_ms=bound_tc, bound_ms=t_bound,
+             bound_by=bound_by, share_of_bound=t_bound / t_kernel,
+             tflops_done=site_flops(site) / (t_kernel * 1e-3) / 1e12,
+             route_bf16=ROUTES[torch.bfloat16], ms_bf16=t_kernel_bf16,
+             graph_ms_bf16=t_graph_bf16,
+             library_ms_bf16=t_lib_bf16, bound_tc_bf16_ms=bound_tc_bf16,
+             share_of_bound_bf16=bound_tc_bf16 / t_kernel_bf16)
 
     stats = {}
     for batch in (16, 1):
@@ -311,6 +392,10 @@ def phase_times(net):
                     torch.cuda.synchronize()
                     lat.append((time.perf_counter() - t0) * 1e3)
                 stats["single_image_p50_ms"] = statistics.median(lat)
+    emit("times", kernel=KERNEL["name"], per_forward_at_batch=4,
+         share_of_bound=totals["bound_ms"] / totals["ms"],
+         share_of_bound_bf16=totals["bound_tc_bf16_ms"] / totals["ms_bf16"],
+         **totals)
     emit("times", forward="FootprintNetwork-34 serving forward ('1/1' head), f32",
          **stats)
     return totals

@@ -74,9 +74,9 @@ class ConvUpsampleAndConcatBlock(nn.Module):
         c_up = x.shape[1]
         conv1 = self.post_concat_conv.conv1
         conv2 = self.post_concat_conv.conv2
-        r = up_conv_fused(_nhwc(x), conv1.weight[:, :c_up].contiguous(), None,
-                          act="none")
-        y = conv_reflect_res_fused(_nhwc(skip), conv1.weight[:, c_up:].contiguous(),
+        # the weight halves are input-channel slice views: no copy
+        r = up_conv_fused(_nhwc(x), conv1.weight[:, :c_up], None, act="none")
+        y = conv_reflect_res_fused(_nhwc(skip), conv1.weight[:, c_up:],
                                    conv1.bias, r, act="elu")
         return _nchw(conv_reflect_fused(y, conv2.weight, conv2.bias, act="elu"))
 

@@ -76,8 +76,9 @@ def load_library():
     """Build if needed, load, and declare every exported function's types."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    # dtype, x, w, b, residual, y, N, Hi, Wi, Ci, Ho, Wo, Co, pad_mode, act, stream
-    lib.fused_conv3x3_launch.argtypes = (i, p, p, p, p, p, i, i, i, i, i, i,
-                                         i, i, i, p)
+    # dtype, x, w, w_stride, b, residual, y, N, Hi, Wi, Ci, Ho, Wo, Co,
+    # pad_mode, act, stream
+    lib.fused_conv3x3_launch.argtypes = (i, p, p, i, p, p, p, i, i, i, i, i,
+                                         i, i, i, i, p)
     lib.fused_conv3x3_launch.restype = i
     return lib

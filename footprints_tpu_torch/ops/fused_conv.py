@@ -10,7 +10,9 @@ kernel.
 
 Layout: activations are NHWC-contiguous ``[N,H,W,C]`` (the model's
 channels_last NCHW tensors permuted, a view), weights are the
-``nn.Conv2d`` OIHW ``[Co,Ci,3,3]``, contiguous.
+``nn.Conv2d`` OIHW ``[Co,Ci,3,3]``: contiguous, or an input-channel slice
+of a contiguous OIHW tensor (strides ``(s, 9, 3, 1)`` with ``s >= 9 Ci``),
+which the kernel reads through ``w.stride(0)``.
 
 pad_mode:
   * ``'reflect'``      conv3x3(reflect_pad(x, 1)); output [N,H,W,Co]
@@ -20,7 +22,13 @@ pad_mode:
     clamp(floor((i+dy-1)/2), 0, Hi-1) (the edge-pad identity of
     footprints_tpu/ops/upconv.py).
 act: ``'elu'`` or ``'none'``; the optional residual [N,Ho,Wo,Co] is added
-before it.  f32 (true f32 FMA, no TF32) and bf16 I/O; f32 accumulation.
+before it.  f32 and bf16 I/O; f32 accumulation.  The kernel runs on the
+tensor cores: bf16 products for bf16, and for f32 the error-compensated
+3xTF32 split (three TF32 products per MAC), held to the same f32 bars as a
+true-f32 conv.  At ``'up2_reflect'`` it computes each of the 4 output
+phases as a 2x2 conv on the edge-padded low-res input with phase-summed
+weights; ``up2_phase_weights`` and ``up2_phase_conv_plain`` are the plain
+PyTorch spec of that identity (no path calls them).
 
 No backward yet: the wrappers refuse inputs that need a gradient.  The
 training slice adds ``torch.autograd.Function``s.
@@ -50,6 +58,33 @@ def fused_conv3x3_plain(x, w, b=None, residual=None, *, pad_mode, act):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def up2_phase_weights(w):
+    """OIHW ``[Co,Ci,3,3]`` -> ``[2,2,Co,Ci,2,2]``: the phase-summed 2x2
+    kernel of output phase (a, b), exactly as the kernel folds it: rows
+    summed first, then columns (footprints_tpu/ops/upconv.py:_phase_kernels).
+    Phase 0 taps low-res (-1, 0) with (w0, w1+w2), phase 1 taps (0, +1) with
+    (w0+w1, w2), in each dimension."""
+    rows = [torch.stack([w[:, :, 0], w[:, :, 1] + w[:, :, 2]], 2),
+            torch.stack([w[:, :, 0] + w[:, :, 1], w[:, :, 2]], 2)]
+    return torch.stack([torch.stack(
+        [torch.stack([r[..., 0], r[..., 1] + r[..., 2]], -1),
+         torch.stack([r[..., 0] + r[..., 1], r[..., 2]], -1)]) for r in rows])
+
+
+def up2_phase_conv_plain(x, w, b=None):
+    """conv3x3(reflect_pad(nearest_up_2x(x))) + b as 4 x (2x2 VALID conv on
+    the edge-padded low-res input), phases interleaved.  x NHWC [N,H,W,Ci],
+    w OIHW [Co,Ci,3,3] -> NHWC [N,2H,2W,Co]."""
+    n, h, w_, _ = x.shape
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1),
+                                 mode="replicate")
+    k = up2_phase_weights(w)
+    out = torch.stack([torch.stack([
+        conv2d(xp[:, :, a:a + h + 1, pb:pb + w_ + 1], k[a, pb], b)
+        for pb in range(2)]) for a in range(2)])      # [2,2,N,Co,H,W]
+    return out.permute(2, 4, 0, 5, 1, 3).reshape(n, 2 * h, 2 * w_, -1)
+
+
 def _check(x, w, b, residual, pad_mode, act):
     if pad_mode not in PAD_MODES:
         raise ValueError(f"pad_mode must be one of {PAD_MODES}, got {pad_mode!r}")
@@ -63,12 +98,16 @@ def _check(x, w, b, residual, pad_mode, act):
     n, h, w_, ci = x.shape
     if pad_mode == "reflect" and (h < 2 or w_ < 2):
         raise ValueError(f"reflect padding needs H, W >= 2, got {h}x{w_}")
-    if w.dim() != 4 or w.shape[1:] != (ci, 3, 3) or not w.is_contiguous():
-        raise ValueError(f"w must be a contiguous OIHW [Co,{ci},3,3] tensor, got "
-                         f"shape {tuple(w.shape)} strides {w.stride()}")
+    if (w.dim() != 4 or w.shape[1:] != (ci, 3, 3) or w.stride()[1:] != (9, 3, 1)
+            or w.stride(0) < 9 * ci):
+        raise ValueError(f"w must be an OIHW [Co,{ci},3,3] tensor, contiguous or "
+                         f"an input-channel slice of one, got shape "
+                         f"{tuple(w.shape)} strides {w.stride()}")
     co = w.shape[0]
     ho, wo = (h, w_) if pad_mode == "reflect" else (2 * h, 2 * w_)
-    named = [("w", w, (co, ci, 3, 3))]
+    if w.dtype != x.dtype or w.device != x.device:
+        raise ValueError(f"w is {w.dtype} on {w.device}; x is {x.dtype} on {x.device}")
+    named = []
     if b is not None:
         named.append(("b", b, (co,)))
     if residual is not None:
@@ -81,7 +120,7 @@ def _check(x, w, b, residual, pad_mode, act):
             raise ValueError(f"{name} is {t.dtype} on {t.device}; x is "
                              f"{x.dtype} on {x.device}")
     if torch.is_grad_enabled() and any(
-            t.requires_grad for _, t, _ in named + [("x", x, None)]):
+            t.requires_grad for _, t, _ in named + [("x", x, None), ("w", w, None)]):
         raise RuntimeError("fused_conv3x3 has no backward yet; call it under "
                            "torch.no_grad() or torch.inference_mode()")
     return n, h, w_, ci, ho, wo, co
@@ -101,7 +140,7 @@ def fused_conv3x3(x, w, b=None, residual=None, *, pad_mode, act):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_conv3x3_launch(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), w.stride(0),
             None if b is None else b.data_ptr(),
             None if residual is None else residual.data_ptr(), y.data_ptr(),
             n, h, w_, ci, ho, wo, co, PAD_MODES.index(pad_mode),

@@ -19,6 +19,7 @@ from footprints_tpu.nn import blocks as jblocks
 from footprints_tpu.nn.layers import conv2d as jconv2d
 from footprints_tpu.nn.layers import reflect_pad as jreflect_pad
 from footprints_tpu.ops import pallas_conv
+from footprints_tpu.ops.upconv import _phase_kernels, conv3x3_on_nearest_up
 from footprints_tpu.ops.s2d import (_phase_embedded_kernel, _s2d_kernel,
                                     depth_to_space, space_to_depth)
 from footprints_tpu_torch.nn.blocks import (ConvBlock,
@@ -102,6 +103,47 @@ def test_reflect_matches_jax_conv_of_reflect_pad(h, w_):
                              jnp.asarray(b)) + r)
     got = _port(x, w, b, r, pad_mode="reflect", act="elu")
     np.testing.assert_allclose(got, np.asarray(ref), atol=ATOL)
+
+
+# --- the phase-fold spec of the up2_reflect kernel --------------------------
+
+_PHASE_SHAPES = [(1, 1, 3, 2), (5, 7, 4, 6), (3, 9, 5, 3), (6, 1, 2, 4)]
+
+
+@pytest.mark.parametrize("ci,co", [(3, 2), (5, 7)])
+def test_up2_phase_weights_match_jax_phase_kernels(ci, co):
+    """The kernel's folded 2x2 taps == footprints_tpu/ops/upconv.py's."""
+    _, w, _, _ = _inputs(20, 1, 1, 1, ci, co)
+    ref = _phase_kernels(jnp.asarray(w))  # [a][b] HWIO [2,2,ci,co]
+    got = fc.up2_phase_weights(_oihw(w))  # [2,2,co,ci,2,2]
+    assert got.shape == (2, 2, co, ci, 2, 2)
+    for a in range(2):
+        for b in range(2):
+            np.testing.assert_allclose(
+                got[a, b].permute(2, 3, 1, 0).numpy(), np.asarray(ref[a][b]),
+                atol=ATOL)
+
+
+@pytest.mark.parametrize("h,w_,ci,co", _PHASE_SHAPES)
+def test_up2_phase_conv_plain_matches_jax_conv3x3_on_nearest_up(h, w_, ci, co):
+    x, w, b, _ = _inputs(21, 2, h, w_, ci, co)
+    ref = conv3x3_on_nearest_up(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                precision=jax.lax.Precision.HIGHEST)
+    with torch.no_grad():
+        got = fc.up2_phase_conv_plain(_t(x), _oihw(w), _t(b)).numpy()
+    assert got.shape == (2, 2 * h, 2 * w_, co)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("h,w_,ci,co", _PHASE_SHAPES)
+def test_up2_phase_conv_plain_matches_fused_plain(h, w_, ci, co):
+    """The 4-tap phase form == the 9-tap contract of pad_mode='up2_reflect'."""
+    x, w, b, _ = _inputs(22, 2, h, w_, ci, co)
+    with torch.no_grad():
+        got = fc.up2_phase_conv_plain(_t(x), _oihw(w), _t(b))
+        ref = fc.fused_conv3x3_plain(_t(x), _oihw(w), _t(b),
+                                     pad_mode="up2_reflect", act="none")
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL)
 
 
 # --- the three wrappers against their JAX counterparts ---------------------
@@ -223,6 +265,8 @@ def _good(**over):
     (dict(x=torch.randn(4, 5, 3)), ValueError),
     (dict(w=torch.randn(2, 4, 3, 3)), ValueError),
     (dict(w=torch.randn(3, 3, 3, 2).permute(3, 2, 0, 1)), ValueError),
+    (dict(w=torch.randn(2, 6, 3, 3)[:, ::2]), ValueError),
+    (dict(w=torch.randn(2, 3, 3, 3, dtype=torch.bfloat16)), ValueError),
     (dict(b=torch.randn(3)), ValueError),
     (dict(residual=torch.randn(1, 4, 5, 3)), ValueError),
     (dict(residual=torch.randn(1, 4, 5, 2, dtype=torch.bfloat16)), ValueError),
@@ -234,6 +278,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, exc):
     with pytest.raises(exc):
         with torch.no_grad():
             fc.fused_conv3x3(**_good(**bad))
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 3), (5, 8), (2, 5)])
+def test_wrapper_takes_input_channel_slice_view(lo, hi):
+    """An input-channel slice of a contiguous OIHW weight (as block4 passes
+    its two halves) is taken as it is, no copy, at any channel offset."""
+    full = torch.randn(2, 8, 3, 3)
+    w = full[:, lo:hi]
+    assert not w.is_contiguous() and w.stride() == (72, 9, 3, 1)
+    args = _good(w=w)
+    with torch.no_grad():
+        got = fc.fused_conv3x3(**args)
+        ref = fc.fused_conv3x3_plain(**{**args, "w": w.contiguous()})
+    torch.testing.assert_close(got, ref)
 
 
 def test_wrapper_refuses_grad_inputs():
