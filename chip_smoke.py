@@ -35,7 +35,40 @@ final result line:
               serving forward's imgs/s at batch 16 and the single-image p50;
   6. profile  torch.profiler device time by kernel over the batch-16
               forward, the idle share, and the full table in
-              smoke_out/profile_b16.json.
+              smoke_out/profile_b16.json;
+  7. train    trains FootprintNetwork-34 at 192x640, batch 12, through
+              footprints_tpu_torch.main on a synthetic KITTI tree of
+              375x1242 frames (where PIL, OpenCV and PyYAML all import;
+              otherwise TrainManager with in-memory samples of the same
+              shapes through the same loader, compactor, prefetcher and
+              step, and the route says so): 4 steps, one validation batch
+              at step 0, 'exact' compact transport.  Checks every logged
+              loss is finite, weights_0/checkpoint.npz holds step 4, a
+              second TrainManager resumes step 4 and the Adam moments, and
+              the kernel ran 10 times per training forward and per
+              validation forward.  Then one GPU step against one CPU step
+              in f64 from the same weights and batch (batch 2, 192x640, the
+              first validation samples): each loss term within
+              1e-5 + 1e-5|ref|, each gradient leaf ||d||/||ref|| < 2e-2
+              (worst printed), BN running stats within 1e-5;
+  8. train_times  the train step alone on a batch-12 batch already on the
+              card (mean of 10 steps after 3 warm-up, CUDA events): ms,
+              imgs/s and peak memory; its forward / backward / Adam split;
+              the trainer's own rate over phase 7's epoch, loader
+              included; at each fused site at batch 12, the kernel's output
+              and the autograd Function's gradients (x, the full weight, b,
+              the residual) against autograd through the plain version in
+              f64 on the same card tensors (output, x, residual 1e-4 +
+              1e-4|ref|; weight and b, sums of 368640 or more products,
+              1e-3 max|ref| + 1e-3|ref| and ||d||/||ref|| < 1e-4), beside
+              the f32 plain version's own distance to it, then the kernel's
+              forward and the Function's cuDNN backward timed; a torch.profiler table of one
+              step by category with the idle share (1 - kernel time / the
+              profiled step's CUDA-event span, unclamped) and the top
+              operators by input shape, in full in
+              smoke_out/profile_train_b12.json; and
+              cuDNN's time for the decoder's block2 post-concat conv at
+              batch 4, 8, 12 and 16.
 
 Exits non-zero when CUDA is absent or the package is not beside this file.
 """
@@ -53,12 +86,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from footprints_tpu_torch import main as train_main
 from footprints_tpu_torch import predict_simple
+from footprints_tpu_torch.checkpoint import load_checkpoint
+from footprints_tpu_torch.data import DataLoader, collate
 from footprints_tpu_torch.model_manager import ModelManager
 from footprints_tpu_torch.models import SCALES, FootprintNetwork
 from footprints_tpu_torch.ops import build
+from footprints_tpu_torch.ops import fused_conv as fc
 from footprints_tpu_torch.ops.fused_conv import (fused_conv3x3,
                                                  fused_conv3x3_plain)
+from footprints_tpu_torch.options import Options
+from footprints_tpu_torch.train.losses import compute_losses
+from footprints_tpu_torch.train.step import build_train_step
+from footprints_tpu_torch.train.trainer import SEED as TRAIN_SEED
+from footprints_tpu_torch.train.trainer import TrainManager
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HEIGHT, WIDTH = 192, 640
@@ -78,6 +120,9 @@ PEAK_BYTES = 3.35e12
 TF32_PRODUCTS_PER_MAC = 3  # the f32 route's 3xTF32 split
 ROUTES = {torch.float32: "mma_tf32x3", torch.bfloat16: "mma_bf16"}
 LAUNCHES_PER_FORWARD = 10  # 5 sites x 2 decoders
+TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES = 12, 4, 1
+CHECK_BATCH = 2  # the GPU-vs-CPU train step
+KITTI_RAW_HW = (375, 1242)
 
 
 def emit(phase, **fields):
@@ -298,9 +343,9 @@ def phase_main(fail, workdir):
          npy_gpu_vs_cpu_max_mae=worst_mae, bar=1e-4)
 
     # the GPU forward against the CPU forward (plain versions) at every scale
-    gpu = ModelManager(device="cuda")
+    gpu = ModelManager(is_inference=True, device="cuda")
     gpu.load_model(weights)
-    cpu = ModelManager(device="cpu")
+    cpu = ModelManager(is_inference=True, device="cpu")
     cpu.load_model(weights)
     x = torch.from_numpy(np.random.RandomState(SEED + 1).rand(
         2, HEIGHT, WIDTH, 3).astype(np.float32))
@@ -446,12 +491,428 @@ def phase_profile(net):
         cat = kernel_category(r["name"])
         by_category[cat] = by_category.get(cat, 0.0) + r["device_ms_per_forward"]
     summary = {"wall_ms_per_forward": wall_ms, "kernel_ms_per_forward": busy,
-               "idle_share": max(0.0, 1 - busy / wall_ms),
+               "idle_share": 1 - busy / wall_ms,
                "ms_by_category": by_category}
     os.makedirs(os.path.join(REPO, "smoke_out"), exist_ok=True)
     with open(os.path.join(REPO, "smoke_out", "profile_b16.json"), "w") as f:
         json.dump({**summary, "kernels": rows}, f, indent=1)
     emit("profile", **summary, top=rows[:10])
+
+
+# --- training -----------------------------------------------------------------
+
+def make_kitti_tree(root, n_frames, n_val, seed):
+    """A synthetic KITTI tree laid out as the trainer reads it (the layout of
+    tests/test_trainer_e2e.py), at KITTI's raw frame size: jpg frames and
+    the ground_seg, hidden_depths, depth_masks, moving_objects and
+    stereo_matching_disps npys.  Returns (paths.yaml, split root)."""
+    import yaml
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    raw, td = os.path.join(root, "raw"), os.path.join(root, "training_data")
+    h, w = KITTI_RAW_HW
+    lines = []
+    for i in range(n_frames):
+        side = "l" if i % 2 == 0 else "r"
+        cam = "image_02" if side == "l" else "image_03"
+        frame = str(i).zfill(10)
+        lines.append(f"seq0 {i} {side}")
+        folder = os.path.join(raw, "seq0", cam, "data")
+        os.makedirs(folder, exist_ok=True)
+        Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            os.path.join(folder, frame + ".jpg"))
+        maps = {"ground_seg": rng.rand(h, w).astype(np.float32),
+                "hidden_depths": (rng.rand(h, w) * 20).astype(np.float32),
+                "depth_masks": (rng.rand(h, w) > 0.97).astype(np.uint8),
+                "moving_objects": (rng.rand(h, w) > 0.95).astype(np.uint8)}
+        for sub, val in maps.items():
+            folder = os.path.join(td, sub, "seq0", cam, "data")
+            os.makedirs(folder, exist_ok=True)
+            np.save(os.path.join(folder, frame + ".npy"), val)
+        folder = os.path.join(td, "stereo_matching_disps", "seq0", cam)
+        os.makedirs(folder, exist_ok=True)
+        np.save(os.path.join(folder, frame + ".npy"),
+                (rng.rand(h, w) * 50 + 5).astype(np.float32))
+    splits = os.path.join(root, "splits")
+    os.makedirs(os.path.join(splits, "kitti"))
+    with open(os.path.join(splits, "kitti", "train.txt"), "w") as f:
+        f.write("\n".join(lines))
+    with open(os.path.join(splits, "kitti", "val.txt"), "w") as f:
+        f.write("\n".join(lines[:n_val]))
+    config = os.path.join(root, "paths.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump({"kitti": {"dataset": raw, "training_data": td}}, f)
+    return config, splits
+
+
+class InMemorySamples:
+    """Seeded samples with the shapes, dtypes and value sets of
+    KITTIDataset's output at 192x640 (the route without PIL/OpenCV/PyYAML)."""
+
+    def __init__(self, n, seed):
+        self.n, self.seed = n, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState(self.seed + i)
+        hw = (HEIGHT, WIDTH)
+        out = {"image": rng.randint(0, 256, (*hw, 3)).astype(np.float32) / 255.0,
+               "visible_ground": (rng.rand(*hw) > 0.5).astype(np.float32),
+               "depth": (rng.rand(*hw) * 40).astype(np.float32),
+               "ground_depth": (rng.rand(*hw) * 20).astype(np.float32),
+               "moving_object_mask": (rng.rand(*hw) > 0.95).astype(np.float32),
+               "depth_mask": (rng.rand(*hw) > 0.97).astype(np.float32)}
+        out["all_ground"] = ((out["ground_depth"] + out["visible_ground"]) > 0
+                             ).astype(np.float32)
+        return out
+
+
+class InMemoryTrainManager(TrainManager):
+    def create_dataloaders(self):
+        bs = self.opt.batch_size
+        return (DataLoader(InMemorySamples(bs * TRAIN_STEPS, 0), bs, shuffle=True,
+                           num_workers=self.opt.num_workers, seed=TRAIN_SEED),
+                DataLoader(InMemorySamples(bs, 10_000), bs, shuffle=True,
+                           num_workers=2, drop_last=True, seed=TRAIN_SEED))
+
+
+def finite_losses(losses):
+    return all(np.isfinite(v) for v in losses.values())
+
+
+def train_step_on(device, host, dtype=torch.float32):
+    """One train step of the seeded FootprintNetwork-34 on `device` in
+    `dtype` (f64 only on the CPU, the plain versions): (loss metrics as
+    floats, f64 grads by name on the CPU, BN running stats)."""
+    mm = ModelManager(device=device, seed=SEED, steps_per_epoch=TRAIN_STEPS)
+    mm.net.to(dtype)  # in place: the optimizer keeps the same parameters
+    step = build_train_step(mm.net, mm.optimizer, mm.config)
+    metrics = step(0, {k: torch.from_numpy(v).to(device, dtype)
+                       for k, v in host.items()})
+    grads = {n: p.grad.detach().cpu().double() for n, p in mm.net.named_parameters()
+             if p.grad is not None}
+    stats = {k: v.detach().cpu().double() for k, v in mm.net.state_dict().items()
+             if "running" in k}
+    return {k: float(v) for k, v in metrics.items() if k != "lr"}, grads, stats
+
+
+def worst_grad_leaf(got, ref):
+    """(leaf, ||got - ref|| / ||ref||) of the worst gradient leaf."""
+    rel = {k: float((got[k] - v).norm() / v.norm().clamp_min(1e-30))
+           for k, v in ref.items()}
+    leaf = max(rel, key=rel.get)
+    return leaf, rel[leaf]
+
+
+def phase_train(fail, workdir):
+    """Train through the entry point; resume; hold a GPU step against a
+    CPU step.  Returns (launches, a batch-12 host batch, the epoch stats)."""
+    have_data_libs = all(importlib.util.find_spec(m) is not None
+                         for m in ("PIL", "cv2", "yaml"))
+    log_path = os.path.join(workdir, "train_logs")
+    argv = ["--mode", "train", "--training_dataset", "kitti",
+            "--height", str(HEIGHT), "--width", str(WIDTH),
+            "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+            "--val_batches", str(VAL_BATCHES), "--host_batch_compact", "exact",
+            "--encoder_depth", "34", "--num_workers", "8", "--device", "cuda",
+            "--log_path", log_path, "--model_name", "smoke"]
+    t0 = time.perf_counter()
+    if have_data_libs:
+        route = (f"footprints_tpu_torch.main.main (synthetic KITTI tree, "
+                 f"{KITTI_RAW_HW[0]}x{KITTI_RAW_HW[1]} frames)")
+        config, splits = make_kitti_tree(os.path.join(workdir, "kitti"),
+                                         TRAIN_BATCH * TRAIN_STEPS, TRAIN_BATCH, SEED)
+        argv += ["--config_path", config, "--split_root", splits]
+        manager_class = TrainManager
+    else:
+        route = "TrainManager with in-memory samples (no PIL/OpenCV/PyYAML)"
+        argv += ["--config_path", "unused"]
+        manager_class = InMemoryTrainManager
+    tree_s = time.perf_counter() - t0
+
+    # the main path: counts set to 0 just before, read just after
+    fused_conv3x3.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    if have_data_libs:
+        tm = train_main.main(argv)
+    else:
+        tm = InMemoryTrainManager(Options().parse(argv))
+        tm.train()
+    torch.cuda.synchronize()
+    launches = fused_conv3x3.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    n_val_events = sum(1 for mode, _, _ in tm.logged if mode == "val")
+    expected = LAUNCHES_PER_FORWARD * (TRAIN_STEPS + VAL_BATCHES * n_val_events)
+    fail.check(n_val_events == 1 and launches == expected,
+               f"train: {launches} kernel launches, expected {expected} "
+               f"(10 per training forward, 10 per validation forward; "
+               f"{n_val_events} validation events)")
+    fail.check(tm.step == TRAIN_STEPS, f"train: step {tm.step}, expected {TRAIN_STEPS}")
+    rest = tm.evaluator.get_averaged_losses("train")
+    fail.check(all(finite_losses(losses) for _, _, losses in tm.logged)
+               and finite_losses(rest) and len(tm.logged) == 2,
+               f"train: logged losses {tm.logged}, later steps {rest}")
+    weights = os.path.join(log_path, "smoke", "models", "weights_0")
+    ckpt = os.path.join(weights, "checkpoint.npz")
+    ok = os.path.exists(ckpt)
+    if ok:
+        loaded = load_checkpoint(ckpt)
+        ok = (int(loaded["step"]) == TRAIN_STEPS
+              and int(loaded["opt_state"][0][0]) == TRAIN_STEPS
+              and all(np.isfinite(a).all() for a in (loaded["opt_state"][0][1],
+                                                     loaded["opt_state"][0][2])))
+    fail.check(ok, f"train: {ckpt} missing or not at step {TRAIN_STEPS}")
+
+    # resume: a second manager restores the step and the Adam moments
+    tm2 = manager_class(Options().parse(argv + ["--load_path", weights]))
+    (count, mu, nu), _ = tm.model_manager.train_state()["opt_state"]
+    (count2, mu2, nu2), _ = tm2.model_manager.train_state()["opt_state"]
+    fail.check(tm2.step == TRAIN_STEPS and int(count2) == int(count) == TRAIN_STEPS
+               and np.array_equal(mu, mu2) and np.array_equal(nu, nu2),
+               f"train: resume gave step {tm2.step}, Adam count {int(count2)}")
+
+    host = next(iter(tm.train_loader))
+    # the check's batch: the first validation samples (no augmentation, so
+    # the same batch in every run)
+    small = collate([tm.val_loader.dataset[i] for i in range(CHECK_BATCH)])
+    for m in (tm, tm2):
+        m.val_iter.close()
+    emit("train", route=route, steps=tm.step, batch=TRAIN_BATCH,
+         shape=[HEIGHT, WIDTH], depth=34, launches=launches,
+         launches_expected=expected, logged=[[m, s, l["loss"]] for m, s, l in tm.logged],
+         checkpoint=os.path.relpath(ckpt, workdir), resumed_step=tm2.step,
+         peak_memory_gib_b12=peak_gib, tree_seconds=tree_s,
+         epoch_seconds=tm.train_seconds)
+
+    # one GPU step against one CPU step from the same weights and batch.
+    # The CPU reference step runs in f64: at batch 2 the deep encoder's
+    # gradients pass through train-mode BN's near-cancelling backward, where
+    # an f32 step (CPU or GPU) sits several 1e-3 from the exact one, so two
+    # f32 steps can differ by the whole bar.
+    m_gpu, g_gpu, s_gpu = train_step_on("cuda", small)
+    m_ref, g_ref, s_ref = train_step_on("cpu", small, torch.float64)
+    loss_ok = all(abs(m_gpu[k] - v) <= 1e-5 + 1e-5 * abs(v) for k, v in m_ref.items())
+    worst_loss = max(abs(m_gpu[k] - v) for k, v in m_ref.items())
+    leaf, rel = worst_grad_leaf(g_gpu, g_ref)
+    bn_err = max(float((s_gpu[k] - v).abs().max()) for k, v in s_ref.items())
+    fail.check(loss_ok, f"train: GPU vs CPU loss terms differ by up to {worst_loss}")
+    fail.check(g_gpu.keys() == g_ref.keys() and rel < 2e-2,
+               f"train: GPU vs CPU gradient of {leaf}: {rel}")
+    fail.check(bn_err <= 1e-5, f"train: GPU vs CPU BN running stats differ by {bn_err}")
+    emit("train", gpu_vs_cpu_step=dict(
+        batch=CHECK_BATCH, shape=[HEIGHT, WIDTH], reference="CPU, f64",
+        loss_max_abs_err=worst_loss, loss_bar="1e-5 + 1e-5|ref|",
+        worst_grad_leaf=leaf, worst_grad_rel=rel, grad_bar=2e-2,
+        bn_max_abs_err=bn_err, bn_bar=1e-5, loss=m_gpu["loss"], loss_ref=m_ref["loss"]))
+    epoch = {"epoch_seconds": tm.train_seconds,
+             "trainer_imgs_per_s": TRAIN_STEPS * TRAIN_BATCH / tm.train_seconds}
+    return launches, host, epoch
+
+
+def train_kernel_category(name):
+    """Coarse bucket of a device kernel's name for the train-step breakdown."""
+    n = name.lower()
+    if "fused_conv3x3" in n:
+        return "fused_conv3x3"
+    if "dgrad" in n:
+        return "cudnn dgrad"
+    if "wgrad" in n:
+        return "cudnn wgrad"
+    if "fft" in n:
+        return "cudnn fft conv (fwd or bwd)"
+    if any(k in n for k in ("fprop", "convolve", "implicit_gemm", "xmma",
+                            "pointwise_mult_and_sum")):
+        return "cudnn forward conv"
+    if any(k in n for k in ("bn_", "batch_norm", "batchnorm", "welford")):
+        return "batch norm"
+    if "multi_tensor_apply" in n or "adam" in n:
+        return "adam (foreach)"
+    if any(k in n for k in ("copy", "cat", "nhwctonchw", "nchwtonhwc", "transpose")):
+        return "copies / layout"
+    if any(k in n for k in ("reflection_pad", "upsample")):
+        return "pads / upsample"
+    if any(k in n for k in ("elementwise", "reduce", "elu", "sigmoid", "softplus")):
+        return "elementwise / reductions"
+    return "other"
+
+
+def site_backward(fail, batch):
+    """At each fused site at `batch`, on the card: the kernel's output and
+    the autograd Function's gradients for x, the full weight, b and the
+    residual, held against autograd through fused_conv3x3_plain in f64 on
+    the same tensors, beside the f32 plain version's own distance to that
+    reference (TF32 off); then the kernel's forward (no graph) and the
+    Function's backward (cuDNN dgrad + wgrad and the pad / upsample
+    adjoints) timed, ms per call.  Bars: the output, x and the residual
+    within 1e-4 + 1e-4|ref| (those of tests/test_torch_cuda.py).  Each entry
+    of the weight and bias gradients sums N H W products (368640 to 1474560
+    here; about 1000 in the card tests, whose weight bars are 10x tighter).
+    On an H100, cuDNN's f32 wgrad of the plain version itself sits about
+    3e-5 (norm) from f64 at block4 (printed as plain_f32_rel), so the bars
+    are 1e-3 max|ref| + 1e-3|ref| elementwise and ||d||/||ref|| < 1e-4:
+    about 3x above that floor, and far below a wrong adjoint or slice."""
+    rows = []
+    for si, site in enumerate(sites(batch)):
+        name, pad_mode, _, _, _, _, act = site
+        x, w, b, r = site_inputs(site, torch.float32, seed=300 + si)
+        halves = w._base is not None  # block4's halves: slices of one weight
+        ci = x.shape[-1]
+        inputs = {k: t for k, t in (("x", x), ("w", w._base if halves else w),
+                                    ("b", b), ("residual", r)) if t is not None}
+
+        def weight(full):
+            if not halves:
+                return full
+            return full[:, :ci] if name.endswith("up_half") else full[:, ci:]
+
+        def leaves(dtype):
+            return {k: t.detach().to(dtype).requires_grad_(True)
+                    for k, t in inputs.items()}
+
+        def plain(ls):
+            return fused_conv3x3_plain(ls["x"], weight(ls["w"]), ls.get("b"),
+                                       ls.get("residual"), pad_mode=pad_mode, act=act)
+
+        ls = leaves(torch.float32)
+        if pad_mode == "up2_reflect":
+            y = fc.up_conv_fused(ls["x"], weight(ls["w"]), ls.get("b"), act=act)
+        elif r is not None:
+            y = fc.conv_reflect_res_fused(ls["x"], weight(ls["w"]), ls["b"],
+                                          ls["residual"], act=act)
+        else:
+            y = fc.conv_reflect_fused(ls["x"], weight(ls["w"]), ls["b"], act=act)
+        gy = torch.randn(y.shape, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(400 + si))
+        got = torch.autograd.grad(y, list(ls.values()), gy, retain_graph=True)
+        y32 = plain(ls)
+        got32 = torch.autograd.grad(y32, list(ls.values()), gy)
+        ls64 = leaves(torch.float64)
+        y64 = plain(ls64)
+        ref = torch.autograd.grad(y64, list(ls64.values()), gy.double())
+        errs = {}
+        for k, a, a32, e in [("y", y, y32, y64), *zip(ls, got, got32, ref)]:
+            a, a32, e = a.detach().double(), a32.detach().double(), e.detach()
+            d = (a - e).abs()
+            rel = float((a - e).norm() / e.norm())
+            if k in ("w", "b"):
+                ok = bool((d <= 1e-3 * e.abs().max() + 1e-3 * e.abs()).all()) and rel < 1e-4
+            else:
+                ok = bool((d <= 1e-4 + 1e-4 * e.abs()).all())
+            errs[k] = {"max_abs": d.max().item(), "rel": rel,
+                       "plain_f32_rel": float((a32 - e).norm() / e.norm())}
+            fail.check(ok and bool(torch.isfinite(a).all()),
+                       f"train_times: {name} at batch {batch}: {k} of the fused "
+                       f"path vs the f64 plain version, {errs[k]}")
+        del y32, y64, got, got32, ref, ls64
+        fixed = [None if t is None else t.detach()
+                 for t in (ls["x"], weight(ls["w"]), ls.get("b"), ls.get("residual"))]
+
+        def forward():
+            with torch.no_grad():
+                return fused_conv3x3(*fixed, pad_mode=pad_mode, act=act)
+
+        def backward():
+            return torch.autograd.grad(y, list(ls.values()), gy, retain_graph=True)
+
+        rows.append({"site": name, "err_vs_f64": errs, "forward_ms": time_ms(forward),
+                     "backward_ms": time_ms(backward)})
+    return rows
+
+
+def cudnn_batch_probe():
+    """cuDNN's f32 time (TF32 off, default heuristics) for the decoder's
+    block2 post-concat conv1, reflect-padded [N,256,26,82] * [128,256,3,3]
+    as the model calls it, at several batch sizes: ms per call, mean of 5."""
+    out = {}
+    w = torch.randn(128, 256, 3, 3, device="cuda") * 0.02
+    for n in (4, 8, 12, 16):
+        x = torch.randn(n, 256, 26, 82, device="cuda")
+        out[f"batch_{n}_ms"] = time_ms(lambda: F.conv2d(x, w), iters=5, warmup=2)
+    return out
+
+
+def phase_train_times(fail, host, epoch):
+    """The train step's time, memory and breakdown at batch 12."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mm = ModelManager(device="cuda", seed=SEED, steps_per_epoch=TRAIN_STEPS)
+    step = build_train_step(mm.net, mm.optimizer, mm.config)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: step(0, batch), iters=10, warmup=3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # forward+loss / backward / Adam, split by CUDA events, mean of 5 steps
+    split = {"forward_loss_ms": 0.0, "backward_ms": 0.0, "adam_ms": 0.0}
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        losses = compute_losses(mm.net(batch["image"]), batch, mm.config.loss)
+        ev[1].record()
+        mm.optimizer.zero_grad(set_to_none=True)
+        losses["loss"].backward()
+        ev[2].record()
+        mm.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, key in enumerate(split):
+            split[key] += ev[i].elapsed_time(ev[i + 1]) / 5
+
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        start.record()
+        step(0, batch)
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    # the operators that launched the device time, by input shape
+    ops = [{"op": evt.key, "shapes": str(evt.input_shapes)[:160], "count": evt.count,
+            "device_ms": evt.self_device_time_total / 1e3}
+           for evt in prof.key_averages(group_by_input_shape=True)
+           if evt.device_type == DeviceType.CPU and evt.key.startswith("aten::")
+           and evt.self_device_time_total > 0]
+    ops.sort(key=lambda r: -r["device_ms"])
+    rows = [{"name": evt.key[:160], "count": evt.count,
+             "device_ms": evt.self_device_time_total / 1e3}
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows)
+    by_category = {}
+    for r in rows:
+        cat = train_kernel_category(r["name"])
+        by_category[cat] = by_category.get(cat, 0.0) + r["device_ms"]
+    fail.check(busy > 0, "train_times: the profiler saw no device time")
+    # the profiled step's own span (CUDA events), which the tracing slows
+    # too; unclamped, so a kernel total above the span would show
+    summary = {"wall_ms_per_step": wall_ms, "kernel_ms_per_step": busy,
+               "idle_share": 1 - busy / wall_ms, "step_ms_unprofiled": ms,
+               "ms_by_category": dict(sorted(by_category.items(), key=lambda kv: -kv[1]))}
+    os.makedirs(os.path.join(REPO, "smoke_out"), exist_ok=True)
+    with open(os.path.join(REPO, "smoke_out", "profile_train_b12.json"), "w") as f:
+        json.dump({**summary, "kernels": rows, "ops": ops}, f, indent=1)
+
+    site_rows = site_backward(fail, TRAIN_BATCH)
+    emit("train_times", train_step_ms_b12=ms,
+         train_imgs_per_s_b12=TRAIN_BATCH / (ms * 1e-3),
+         peak_memory_gib_b12=peak_gib, **split, **epoch)
+    emit("train_times", kernel=KERNEL["name"], batch=TRAIN_BATCH,
+         launches_per_step_forward=LAUNCHES_PER_FORWARD, launches_per_step_backward=0,
+         sites=site_rows, reference="autograd of the plain version, f64, same tensors",
+         bars={"y, x, residual": "1e-4 + 1e-4|ref|",
+               "w, b": "1e-3 max|ref| + 1e-3|ref|, ||d||/||ref|| < 1e-4"},
+         forward_ms_per_step=2 * sum(r["forward_ms"] for r in site_rows),
+         backward_ms_per_step=2 * sum(r["backward_ms"] for r in site_rows))
+    emit("train_times", profile=summary, top=rows[:12], top_ops=ops[:8])
+    emit("train_times", cudnn_probe=cudnn_batch_probe())
+
 
 
 def main():
@@ -479,6 +940,11 @@ def main():
         launches, net = phase_main(fail, workdir)
     totals = phase_times(net)
     phase_profile(net)
+    del net
+    with tempfile.TemporaryDirectory() as workdir:
+        train_launches, host, epoch = phase_train(fail, workdir)
+    phase_train_times(fail, host, epoch)
+    launches += train_launches
 
     if fail:
         print(f"chip_smoke: {len(fail)} check(s) failed", file=sys.stderr)

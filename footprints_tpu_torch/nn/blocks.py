@@ -6,12 +6,15 @@
 
 Module and parameter names follow the reference's state_dict.  Decoder
 ConvBlocks keep their BatchNorm modules although the reference never applies
-them (use_bn=False), so a reference state_dict loads strictly.
+them (use_bn=False), so a reference state_dict loads strictly.  They are
+frozen (``requires_grad=False``): the JAX pytree has no such leaves, so the
+optimizer never sees them.
 
 The decoder's full-resolution convs run through the hand-written CUDA kernel
-(ops/fused_conv.py), every time: block4's post-concat ConvBlock
-(``ConvUpsampleAndConcatBlock(fused=True)``) and the tail ConvBlock
-(``decoder_tail``), 5 launches per decoder.  The other convs are
+(ops/fused_conv.py), every time, in training as in serving: block4's
+post-concat ConvBlock (``ConvUpsampleAndConcatBlock(fused=True)``) and the
+tail ConvBlock (``decoder_tail``), 5 launches per decoder per forward.  Their
+backward is cuDNN's (the wrappers' autograd Function).  The other convs are
 ``F.pad(reflect)`` + ``F.conv2d``.  Tensors are NCHW views of channels_last
 memory; the kernel sites permute them to NHWC views.
 """
@@ -42,6 +45,8 @@ class ConvBlock(nn.Module):
         self.bn1 = nn.BatchNorm2d(out_ch)  # unused, kept for the state_dict
         self.conv2 = nn.Conv2d(out_ch, out_ch, 3)
         self.bn2 = nn.BatchNorm2d(out_ch)  # unused, kept for the state_dict
+        self.bn1.requires_grad_(False)
+        self.bn2.requires_grad_(False)
 
     def forward(self, x):
         x = elu(conv2d(reflect_pad(x, 1), self.conv1.weight, self.conv1.bias))

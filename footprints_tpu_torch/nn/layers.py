@@ -3,7 +3,7 @@ footprints_tpu/nn/layers.py).
 
 Contracts, each tested against the JAX package in tests/test_torch_layers.py:
   * conv2d           == torch.nn.Conv2d (same stride/padding)
-  * batch_norm       == torch.nn.BatchNorm2d in eval mode (running stats)
+  * batch_norm       == torch.nn.BatchNorm2d (train and eval modes)
   * reflect_pad      == torch.nn.ReflectionPad2d
   * max_pool_3x3_s2  == torch.nn.MaxPool2d(3, 2, padding=1)
   * upsample_nearest == F.interpolate(mode='nearest', scale_factor=k)
@@ -19,10 +19,15 @@ import torch.nn.functional as F
 conv2d = F.conv2d
 
 
-def batch_norm(x, weight, bias, running_mean, running_var, eps=1e-5):
-    """Eval-mode BatchNorm over N,H,W with the running statistics."""
+def batch_norm(x, weight, bias, running_mean, running_var, eps=1e-5, *,
+               training=False, momentum=0.1):
+    """BatchNorm over N,H,W.  Eval mode normalises with the running
+    statistics.  Training mode normalises with the batch mean and biased
+    variance and updates the running statistics in place:
+    ``r = (1 - momentum) r + momentum s``, with the *unbiased* batch variance
+    for ``running_var`` (footprints_tpu/nn/layers.py:batch_norm)."""
     return F.batch_norm(x, running_mean, running_var, weight, bias,
-                        training=False, eps=eps)
+                        training=training, momentum=momentum, eps=eps)
 
 
 def reflect_pad(x, pad=1):

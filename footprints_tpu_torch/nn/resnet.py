@@ -9,8 +9,9 @@ bn, relu); ``layer1`` = Sequential(maxpool, stage); ``layer2..4`` = stages),
 so a reference ``model.pth`` loads with ``load_state_dict(strict=True)``.
 
 The encoder runs on cuDNN / torch.nn.functional: the JAX package has no
-Pallas kernel here either.  Inference only: BN always uses its running
-statistics; train-mode BN arrives with the training slice.
+Pallas kernel here either.  BN follows ``module.training``: batch statistics
+and running-stat updates after ``.train()``, running statistics after
+``.eval()``.  ``num_batches_tracked`` is not advanced (momentum is fixed).
 """
 
 import torch.nn as nn
@@ -37,7 +38,7 @@ def feature_channels(depth: int):
 
 def _bn(x, bn):
     return batch_norm(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                      bn.eps)
+                      bn.eps, training=bn.training, momentum=bn.momentum)
 
 
 def _downsample(c_in, c_out, stride):

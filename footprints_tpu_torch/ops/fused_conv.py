@@ -22,7 +22,8 @@ pad_mode:
     clamp(floor((i+dy-1)/2), 0, Hi-1) (the edge-pad identity of
     footprints_tpu/ops/upconv.py).
 act: ``'elu'`` or ``'none'``; the optional residual [N,Ho,Wo,Co] is added
-before it.  f32 and bf16 I/O; f32 accumulation.  The kernel runs on the
+before it.  f32 and bf16 I/O; f32 accumulation (a CPU tensor may also be
+f64, for f64 reference runs of the plain version).  The kernel runs on the
 tensor cores: bf16 products for bf16, and for f32 the error-compensated
 3xTF32 split (three TF32 products per MAC), held to the same f32 bars as a
 true-f32 conv.  At ``'up2_reflect'`` it computes each of the 4 output
@@ -30,8 +31,17 @@ phases as a 2x2 conv on the edge-padded low-res input with phase-summed
 weights; ``up2_phase_weights`` and ``up2_phase_conv_plain`` are the plain
 PyTorch spec of that identity (no path calls them).
 
-No backward yet: the wrappers refuse inputs that need a gradient.  The
-training slice adds ``torch.autograd.Function``s.
+Gradients: ``fused_conv3x3`` itself records no autograd graph.  The three
+model-facing wrappers (``up_conv_fused``, ``conv_reflect_fused``,
+``conv_reflect_res_fused``) go through one ``torch.autograd.Function``,
+``FusedConv3x3Fn``, the counterpart of the JAX package's ``custom_vjp``s
+(pallas_conv.py:208-276):
+the forward is the kernel (the plain version on a CPU tensor), the backward
+is the VJP of the plain composition, as there: cuDNN's dgrad and wgrad
+(``aten.convolution_backward``) on the padded input, then the adjoints of
+the reflect pad and of the nearest x2 upsample.  ELU's derivative comes from
+the saved output: ``min(y, 0) + 1``.  No backward kernel is hand-written,
+since the TPU kernel has none either.
 """
 
 import ctypes
@@ -90,8 +100,10 @@ def _check(x, w, b, residual, pad_mode, act):
         raise ValueError(f"pad_mode must be one of {PAD_MODES}, got {pad_mode!r}")
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused_conv3x3 takes float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in _DTYPE_CODES and not (x.dtype == torch.float64
+                                            and x.device.type == "cpu"):
+        raise TypeError(f"fused_conv3x3 takes float32 or bfloat16 (and float64 "
+                        f"on the CPU, plain version only), got {x.dtype} on {x.device}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous NHWC tensor, got shape "
                          f"{tuple(x.shape)} strides {x.stride()}")
@@ -121,8 +133,9 @@ def _check(x, w, b, residual, pad_mode, act):
                              f"{x.dtype} on {x.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for _, t, _ in named + [("x", x, None), ("w", w, None)]):
-        raise RuntimeError("fused_conv3x3 has no backward yet; call it under "
-                           "torch.no_grad() or torch.inference_mode()")
+        raise RuntimeError("fused_conv3x3 records no autograd graph; "
+                           "differentiate through up_conv_fused, "
+                           "conv_reflect_fused or conv_reflect_res_fused")
     return n, h, w_, ci, ho, wo, co
 
 
@@ -154,20 +167,59 @@ def fused_conv3x3(x, w, b=None, residual=None, *, pad_mode, act):
 fused_conv3x3.launches = 0
 
 
+class FusedConv3x3Fn(torch.autograd.Function):
+    """fused_conv3x3 with its gradient: the counterpart of the custom_vjps
+    up_conv_s2d_fused, s2d_conv_fused and s2d_conv_res_fused
+    (footprints_tpu/ops/pallas_conv.py:209, :231, :253)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, residual, pad_mode, act):
+        y = fused_conv3x3(x, w, b, residual, pad_mode=pad_mode, act=act)
+        ctx.pad_mode = pad_mode
+        ctx.save_for_backward(x, w, y if act == "elu" else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        """Gradients (x, w, b, residual) of act(conv3x3(pad(x)) + b
+        [+ residual]), None where that input needs none; the residual's is
+        the pre-activation gradient.  gy: NHWC [N,Ho,Wo,Co]."""
+        x, w, y = ctx.saved_tensors
+        need_x, need_w, need_b, need_r = ctx.needs_input_grad[:4]
+        gz = gy if y is None else gy * (y.clamp(max=0) + 1)
+        gx = gw = None
+        if need_x or need_w:
+            up = ctx.pad_mode == "up2_reflect"
+            xu = x.permute(0, 3, 1, 2)
+            if up:
+                xu = upsample_nearest(xu, 2)
+            gxp, gw, _ = torch.ops.aten.convolution_backward(
+                gz.permute(0, 3, 1, 2), reflect_pad(xu, 1), w, None, (1, 1),
+                (0, 0), (1, 1), False, (0, 0), 1, (need_x, need_w, False))
+            if need_x:
+                gx = torch.ops.aten.reflection_pad2d_backward(
+                    gxp, xu, (1, 1, 1, 1)).permute(0, 2, 3, 1)
+                if up:  # adjoint of pixel replication: sum each 2x2 block
+                    n, h, w_, c = x.shape
+                    gx = gx.reshape(n, h, 2, w_, 2, c).sum((2, 4))
+        gb = gz.sum((0, 1, 2)) if need_b else None
+        return gx, gw, gb, gz if need_r else None, None, None
+
+
 # The three wrappers mirror the JAX package's one for one
 # (footprints_tpu/ops/pallas_conv.py: up_conv_s2d_fused, s2d_conv_res_fused,
 # s2d_conv_fused), in plain full-resolution NHWC instead of s2d layout.
 
 def up_conv_fused(x, w, b, act="elu"):
     """act(conv3x3(reflect_pad(nearest_up_2x(x))) + b): [N,H,W,C] -> [N,2H,2W,Co]."""
-    return fused_conv3x3(x, w, b, pad_mode="up2_reflect", act=act)
+    return FusedConv3x3Fn.apply(x, w, b, None, "up2_reflect", act)
 
 
 def conv_reflect_fused(x, w, b, act="elu"):
     """act(conv3x3(reflect_pad(x)) + b)."""
-    return fused_conv3x3(x, w, b, pad_mode="reflect", act=act)
+    return FusedConv3x3Fn.apply(x, w, b, None, "reflect", act)
 
 
 def conv_reflect_res_fused(x, w, b, residual, act="elu"):
     """act(conv3x3(reflect_pad(x)) + b + residual) (block4 post conv1)."""
-    return fused_conv3x3(x, w, b, residual, pad_mode="reflect", act=act)
+    return FusedConv3x3Fn.apply(x, w, b, residual, "reflect", act)

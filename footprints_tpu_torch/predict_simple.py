@@ -48,7 +48,7 @@ class InferenceManager:
                     "pretrained checkpoint) or --model_path <weights dir>")
             download_model_if_doesnt_exist(model_name)
             model_load_folder = os.path.join(MODEL_DIR, model_name)
-        self.model_manager = ModelManager(device=device)
+        self.model_manager = ModelManager(is_inference=True, device=device)
         self.model_manager.load_model(model_load_folder)
         self.device = self.model_manager.device
 

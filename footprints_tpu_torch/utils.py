@@ -1,12 +1,14 @@
-"""Shared utilities: device selection, image loading and the md5-checked
-download of the published checkpoints (counterpart of
-footprints_tpu/utils.py).  PIL is imported only inside ``pil_loader``."""
+"""Shared utilities: device selection, image loading, visualisation
+scaling, time formatting and the md5-checked download of the published
+checkpoints (counterpart of footprints_tpu/utils.py).  PIL is imported only
+inside ``pil_loader``."""
 
 import hashlib
 import os
 import urllib.request
 import zipfile
 
+import numpy as np
 import torch
 
 MODEL_DIR = "models"
@@ -46,6 +48,20 @@ def pil_loader(path):
     with open(path, "rb") as f:
         with Image.open(f) as img:
             return img.convert("RGB")
+
+
+def normalise_image(img):
+    """Min-max normalise a numpy image to [0, 1] for visualisation."""
+    img = np.asarray(img, dtype=np.float32)
+    lo, hi = float(img.min()), float(img.max())
+    denom = hi - lo if hi != lo else 1e5
+    return (img - lo) / denom
+
+
+def sec_to_hm_str(secs):
+    """Seconds -> '00h00m00s'."""
+    secs = int(secs)
+    return f"{secs // 3600:02d}h{(secs // 60) % 60:02d}m{secs % 60:02d}s"
 
 
 def check_file_matches_md5(checksum, fpath):

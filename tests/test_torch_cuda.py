@@ -1,5 +1,7 @@
 """Tests of the port that need the card: the CUDA kernel against its plain
-PyTorch version, and the model's GPU forward against its CPU forward.
+PyTorch version, the fused wrappers' gradients on the card against CPU
+autograd through the plain version, the device prefetcher's copy, and the
+model's GPU forward and train step against the CPU's.
 
 They skip on a host without CUDA.  This file imports neither JAX nor the JAX
 package, so it also runs on a GPU host that has no JAX:
@@ -7,11 +9,15 @@ package, so it also runs on a GPU host that has no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from footprints_tpu_torch.data import DevicePrefetcher
+from footprints_tpu_torch.data.compact import BatchCompactor, decompact_on_device
 from footprints_tpu_torch.models import SCALES, FootprintNetwork
 from footprints_tpu_torch.ops import fused_conv as fc
+from footprints_tpu_torch.train import step as tstep
 
 pytestmark = pytest.mark.cuda
 
@@ -149,3 +155,118 @@ def test_model_gpu_forward_matches_cpu(cuda_device):
     assert fc.fused_conv3x3.launches == before + 10
     for k in SCALES:
         assert (got[k].cpu() - ref[k]).abs().mean() < 1e-4, k
+
+
+@pytest.mark.parametrize("kind,hw", [("up", (7, 19)), ("up", (1, 1)),
+                                     ("reflect", (13, 37)), ("res", (13, 37)),
+                                     ("res", (2, 2))])
+@pytest.mark.parametrize("act", ["elu", "none"])
+def test_fused_grads_match_cpu_autograd_of_plain(cuda_device, kind, hw, act):
+    """The autograd wrappers on the card (kernel forward, cuDNN backward)
+    against CPU autograd through the plain version; w is an input-channel
+    slice view, as block4 passes it.  TF32 off.  Bars: 1e-4 + 1e-4|ref| for
+    x, b and the residual; the weight gradient sums N H W (about 1000)
+    products of O(1) terms, which cuDNN's wgrad algorithms add in other
+    orders with errors that scale with the sums, so its bar is elementwise
+    1e-4 max|ref| + 1e-4|ref|, and ||d|| / ||ref|| < 1e-5 over the tensor."""
+    pad_mode = "up2_reflect" if kind == "up" else "reflect"
+    g = torch.Generator().manual_seed(21)
+    x, w, b, r = _case("cpu", pad_mode, hw, 64, 32, torch.float32, seed=21)
+    full = torch.randn(32, 128, 3, 3, generator=g) * 0.1
+    full[:, 32:96] = w
+    gy = torch.randn(r.shape, generator=g)
+
+    def grads(device, plain):
+        leaves = [t.to(device).requires_grad_(True) for t in (x, full, b, r)]
+        tx, tfull, tb, tr = leaves
+        tw = tfull[:, 32:96]
+        res = tr if kind == "res" else None
+        if plain:
+            y = fc.fused_conv3x3_plain(tx, tw, tb, res, pad_mode=pad_mode, act=act)
+        elif kind == "up":
+            y = fc.up_conv_fused(tx, tw, tb, act=act)
+        elif kind == "reflect":
+            y = fc.conv_reflect_fused(tx, tw, tb, act=act)
+        else:
+            y = fc.conv_reflect_res_fused(tx, tw, tb, tr, act=act)
+        (y * gy.to(device)).sum().backward()
+        return [None if t.grad is None else t.grad.cpu() for t in leaves]
+
+    before = fc.fused_conv3x3.launches
+    got = grads(cuda_device, plain=False)
+    torch.cuda.synchronize()
+    assert fc.fused_conv3x3.launches == before + 1  # forward only
+    ref = grads("cpu", plain=True)
+    for i, (a, e) in enumerate(zip(got, ref)):
+        if e is None:
+            assert a is None
+        else:
+            atol = 1e-4 * e.abs().max().item() if i == 1 else 1e-4
+            torch.testing.assert_close(a, e, atol=atol, rtol=1e-4)
+            assert (a - e).norm() <= 1e-5 * e.norm()
+
+
+def test_prefetcher_copy_matches_synchronous_to(cuda_device):
+    """Pinned non_blocking copies on the side stream, consumed on the
+    current stream (with a busy current stream so a missing wait would
+    show), equal a synchronous .to() of the same arrays."""
+    rng = np.random.RandomState(22)
+    host = [{"image": rng.rand(4, 64, 96, 3).astype(np.float32),
+             "depth": (rng.rand(4, 64, 96) * 30).astype(np.float32),
+             "visible_ground": (rng.rand(4, 64, 96) > 0.5).astype(np.float32)}
+            for _ in range(6)]
+    compactor = BatchCompactor("exact")
+    busy = torch.randn(4096, 4096, device=cuda_device)
+    got = []
+    prefetcher = DevicePrefetcher(map(compactor, host), cuda_device, depth=2,
+                                  decode=lambda b: decompact_on_device(b, compactor.scheme))
+    for batch in prefetcher:
+        busy = busy @ busy / 64  # keep the consumer stream behind
+        got.append({k: v.clone() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    for h, d in zip(host, got):
+        for k, v in h.items():
+            assert torch.equal(d[k].cpu(), torch.from_numpy(v)), k
+            assert torch.equal(d[k], torch.from_numpy(v).to(cuda_device)), k
+
+
+def test_train_step_gpu_matches_cpu(cuda_device):
+    """One train step of FootprintNetwork-18 at 64x128 on the card against
+    the same step on the CPU in f64 (an f32 step, on either side, sits
+    several 1e-3 from the exact one at the deep encoder's leaves, where
+    train-mode BN's backward nearly cancels at batch 2, so two f32 steps can
+    differ by the whole bar): losses 1e-5 + 1e-5|ref|, each gradient
+    ||d||/||ref|| < 2e-2, BN running stats 1e-5; 10 kernel launches."""
+    g = torch.Generator().manual_seed(23)
+    nets = {d: FootprintNetwork(18, device=d, generator=torch.Generator().manual_seed(23))
+            for d in (cuda_device, "cpu")}
+    nets["cpu"].to(torch.float64)
+    batch = {"image": torch.rand(2, 64, 128, 3, generator=g),
+             "depth": torch.rand(2, 64, 128, generator=g) * 20,
+             "ground_depth": torch.rand(2, 64, 128, generator=g) * 15,
+             **{k: (torch.rand(2, 64, 128, generator=g) > 0.5).float()
+                for k in ("visible_ground", "all_ground", "depth_mask",
+                          "moving_object_mask")}}
+    config = tstep.TrainStepConfig()
+    out = {}
+    for device, net in nets.items():
+        dtype = next(net.parameters()).dtype
+        step = tstep.build_train_step(net, tstep.make_optimizer(net, config), config)
+        before = fc.fused_conv3x3.launches
+        metrics = step(0, {k: v.to(device, dtype) for k, v in batch.items()})
+        out[str(device)] = (metrics, fc.fused_conv3x3.launches - before,
+                            {n: p.grad.cpu().double() for n, p in net.named_parameters()
+                             if p.grad is not None},
+                            {k: v.cpu().double() for k, v in net.state_dict().items()})
+    (m_gpu, n_gpu, g_gpu, sd_gpu), (m_cpu, n_cpu, g_cpu, sd_cpu) = \
+        out[str(cuda_device)], out["cpu"]
+    assert (n_gpu, n_cpu) == (10, 0)
+    for k, v in m_cpu.items():
+        if k != "lr":
+            assert abs(m_gpu[k].item() - v.item()) <= 1e-5 + 1e-5 * abs(v.item()), k
+    assert g_gpu.keys() == g_cpu.keys()
+    for k, v in g_cpu.items():
+        assert (g_gpu[k] - v).norm() / v.norm().clamp_min(1e-12) < 2e-2, k
+    for k, v in sd_cpu.items():
+        if "running" in k:
+            torch.testing.assert_close(sd_gpu[k], v, atol=1e-5, rtol=0)

@@ -260,7 +260,7 @@ def _good(**over):
 
 
 @pytest.mark.parametrize("bad,exc", [
-    (dict(x=torch.randn(1, 4, 5, 3, dtype=torch.float64)), TypeError),
+    (dict(x=torch.randn(1, 4, 5, 3, dtype=torch.float16)), TypeError),
     (dict(x=torch.randn(1, 5, 4, 3).transpose(1, 2)), ValueError),
     (dict(x=torch.randn(4, 5, 3)), ValueError),
     (dict(w=torch.randn(2, 4, 3, 3)), ValueError),
@@ -295,8 +295,10 @@ def test_wrapper_takes_input_channel_slice_view(lo, hi):
 
 
 def test_wrapper_refuses_grad_inputs():
+    """The raw kernel wrapper records no graph; gradients go through the
+    three autograd wrappers (tests/test_torch_fused_grad.py)."""
     args = _good(w=torch.randn(2, 3, 3, 3, requires_grad=True))
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="records no autograd graph"):
         fc.fused_conv3x3(**args)
 
 
@@ -309,6 +311,19 @@ def test_cpu_runs_plain_version_and_counts_no_launch():
     assert fc.fused_conv3x3.launches == before
     assert got.shape == (1, 4, 5, 2) and got.is_contiguous()
     torch.testing.assert_close(got, ref)
+
+
+def test_f64_on_cpu_runs_the_plain_version():
+    """f64 reference runs (chip_smoke.py's CPU step) go through the plain
+    version; the kernel has no f64 route."""
+    args = _good(x=torch.randn(1, 4, 5, 3, dtype=torch.float64),
+                 w=torch.randn(2, 3, 3, 3, dtype=torch.float64),
+                 b=torch.randn(2, dtype=torch.float64))
+    with torch.no_grad():
+        got = fc.fused_conv3x3(**args)
+        ref = fc.fused_conv3x3_plain(**args)
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
 
 
 def test_bf16_on_cpu_matches_f32_plain():
