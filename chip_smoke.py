@@ -13,7 +13,8 @@ final result line:
               (atol = rtol = 1e-4, TF32 off on both sides: 576-term dot
               products summed in another order) and bf16 (2e-2 against the
               f32 plain version on the same bf16-rounded inputs: the output
-              is rounded to bf16);
+              is rounded to bf16), and at the 5 sites of the Matterport
+              dump's 512x640 forward, batch 4, in f32;
   4. main     writes a seeded FootprintNetwork-34 as model.pth and serves
               it through footprints_tpu_torch.predict_simple on the GPU: one
               image, then folder mode over test_data/, each run again with
@@ -68,7 +69,37 @@ final result line:
               operators by input shape, in full in
               smoke_out/profile_train_b12.json; and
               cuDNN's time for the decoder's block2 post-concat conv at
-              batch 4, 8, 12 and 16.
+              batch 4, 8, 12 and 16;
+  9. dump     writes a seeded FootprintNetwork-34 checkpoint.npz and dumps a
+              synthetic KITTI test split of 26 frames (375x1242) through
+              footprints_tpu_torch.main --mode inference on the GPU at
+              192x640, batch 12 (a padded tail of 2): where Pillow and
+              PyYAML import, the real dataset; otherwise InferenceManager
+              over in-memory images with the same {'image', 'idx'} contract
+              and save_result, and the route says so.  Checks the 26 files
+              (float16 [4,192,640], finite, sigmoid channels in [0,1]), 10
+              launches per batch, the first batch against a --device cpu
+              run (2e-3 + 2e-3|cpu|), and the overlapped dump byte-identical
+              to the serial one.  Then a Matterport dump at 512x640 (6
+              frames, batch 4) on the GPU and its --device cpu twin: every
+              file within 2e-3 + 2e-3|cpu| of its twin, and each dump
+              scored by footprints_tpu_torch.eval.evaluate (iou and depth,
+              download=False) on synthetic npy ground truth: finite, GPU
+              and CPU within 1e-2.  Times the dump (loader and writer
+              included, host clock ending in a synchronise) over 192 frames
+              (the 26, cycled) at batch 12 and 16, serial and overlapped,
+              and the block2 post-concat conv's time alone; and profiles
+              one overlapped dump at each: the device's busy share and the
+              conv's share of the busy and the wall time, each from the
+              union of the device events' intervals, beside their summed
+              durations and how many of them overlap on one stream;
+ 10. seg_dump the same for a seeded Segmentor-34 with PSP through
+              footprints_tpu_torch.preprocessing.segmentation.main --mode
+              inference over the sorted train+val split of the same 26
+              frames: the ground_seg tree (float16 [1,192,640] in [0,1]), 5
+              launches per batch, overlap byte-identical to serial, the GPU
+              forward against the CPU forward at every scale (MAE < 1e-4),
+              times and profile at batch 12 and 16.
 
 Exits non-zero when CUDA is absent or the package is not beside this file.
 """
@@ -86,12 +117,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from footprints_tpu_torch import main as train_main
+from footprints_tpu_torch import main as port_main
 from footprints_tpu_torch import predict_simple
-from footprints_tpu_torch.checkpoint import load_checkpoint
-from footprints_tpu_torch.data import DataLoader, collate
+from footprints_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+from footprints_tpu_torch.convert import segmentor_jax_params_from_state_dict
+from footprints_tpu_torch.core.config import readlines
+from footprints_tpu_torch.data import DataLoader, collate, get_inference_dataset_class
+from footprints_tpu_torch.eval import evaluate
+from footprints_tpu_torch.eval.inference import InferenceManager
 from footprints_tpu_torch.model_manager import ModelManager
-from footprints_tpu_torch.models import SCALES, FootprintNetwork
+from footprints_tpu_torch.models import SCALES, FootprintNetwork, Segmentor
+from footprints_tpu_torch.preprocessing.segmentation import datasets as seg_datasets
+from footprints_tpu_torch.preprocessing.segmentation import main as seg_main
+from footprints_tpu_torch.preprocessing.segmentation.inference import Tester
+from footprints_tpu_torch.preprocessing.segmentation.options import Options as SegOptions
 from footprints_tpu_torch.ops import build
 from footprints_tpu_torch.ops import fused_conv as fc
 from footprints_tpu_torch.ops.fused_conv import (fused_conv3x3,
@@ -123,6 +162,18 @@ LAUNCHES_PER_FORWARD = 10  # 5 sites x 2 decoders
 TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES = 12, 4, 1
 CHECK_BATCH = 2  # the GPU-vs-CPU train step
 KITTI_RAW_HW = (375, 1242)
+DUMP_BATCH, DUMP_FRAMES = 12, 26  # options.py's default batch; a padded tail of 2
+TIMED_BATCHES = (12, 16)  # the default batch, on cuDNN's f32 cliff, and past it
+# the timed dumps cycle through the 26 frames for 16 batches of 12 (12 of 16):
+# the loader builds each batch on one thread, so a dump of a few batches
+# times mostly the first batch's loading
+TIMED_FRAMES = 192
+SEG_LAUNCHES_PER_FORWARD = 5  # 5 sites x 1 decoder
+MATTERPORT_HW, MATTERPORT_RAW_HW = (512, 640), (1024, 1280)
+MATTERPORT_FRAMES, MATTERPORT_BATCH = 6, 4
+F16_BAR = 2e-3  # a float16 dump against its CPU twin: 2e-3 + 2e-3|cpu|
+# the decoders' block2 post-concat conv1 input, reflect-padded, per image
+CLIFF_INPUT = [256, HEIGHT // 8 + 2, WIDTH // 8 + 2]
 
 
 def emit(phase, **fields):
@@ -137,16 +188,18 @@ class Failures(list):
         return ok
 
 
-def sites(batch):
-    """The kernel's 5 call sites per decoder in the 192x640 forward:
-    (name, pad_mode, input NHWC shape, Co, residual?, bias?, act)."""
-    h2, w2, h4, w4 = HEIGHT // 2, WIDTH // 2, HEIGHT // 4, WIDTH // 4
+def sites(batch, hw=(HEIGHT, WIDTH)):
+    """The kernel's 5 call sites per decoder in the forward at `hw` (192x640
+    unless given): (name, pad_mode, input NHWC shape, Co, residual?, bias?,
+    act)."""
+    height, width = hw
+    h2, w2, h4, w4 = height // 2, width // 2, height // 4, width // 4
     return [
         ("block4.post.conv1.up_half", "up2_reflect", (batch, h4, w4, 64), 64, False, False, "none"),
         ("block4.post.conv1.skip_half", "reflect", (batch, h2, w2, 64), 64, True, True, "elu"),
         ("block4.post.conv2", "reflect", (batch, h2, w2, 64), 64, False, True, "elu"),
         ("tail.conv1", "up2_reflect", (batch, h2, w2, 64), 32, False, True, "elu"),
-        ("tail.conv2", "reflect", (batch, HEIGHT, WIDTH, 32), 32, False, True, "elu"),
+        ("tail.conv2", "reflect", (batch, height, width, 32), 32, False, True, "elu"),
     ]
 
 
@@ -251,12 +304,16 @@ def library_call(site, x, w, b):
 
 
 def phase_sites(fail):
-    """Kernel vs plain at every site, f32 and bf16.  Returns the f32 max
-    abs error."""
+    """Kernel vs plain at every site of the 192x640 forward, f32 and bf16,
+    and at the Matterport dump's 512x640 sites (batch 4, f32: the dump's
+    dtype).  Returns the f32 max abs error."""
     worst = 0.0
-    for si, site in enumerate(sites(batch=4)):
+    f32, bf16 = (torch.float32, 1e-4), (torch.bfloat16, 2e-2)
+    cases = [(site, (f32, bf16)) for site in sites(batch=4)]
+    cases += [(site, (f32,)) for site in sites(MATTERPORT_BATCH, MATTERPORT_HW)]
+    for si, (site, dtypes) in enumerate(cases):
         name, pad_mode, _, _, _, _, act = site
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for dtype, tol in dtypes:
             x, w, b, r = site_inputs(site, dtype, seed=100 + si)
             f32 = [None if t is None else t.float() for t in (x, w, b, r)]
             with torch.no_grad():
@@ -637,7 +694,7 @@ def phase_train(fail, workdir):
     fused_conv3x3.launches = 0
     torch.cuda.reset_peak_memory_stats()
     if have_data_libs:
-        tm = train_main.main(argv)
+        tm = port_main.main(argv)
     else:
         tm = InMemoryTrainManager(Options().parse(argv))
         tm.train()
@@ -823,13 +880,13 @@ def site_backward(fail, batch):
     return rows
 
 
-def cudnn_batch_probe():
+def cudnn_batch_probe(batches=(4, 8, 12, 16)):
     """cuDNN's f32 time (TF32 off, default heuristics) for the decoder's
     block2 post-concat conv1, reflect-padded [N,256,26,82] * [128,256,3,3]
-    as the model calls it, at several batch sizes: ms per call, mean of 5."""
+    as the model calls it, at each batch size N: ms per call, mean of 5."""
     out = {}
     w = torch.randn(128, 256, 3, 3, device="cuda") * 0.02
-    for n in (4, 8, 12, 16):
+    for n in batches:
         x = torch.randn(n, 256, 26, 82, device="cuda")
         out[f"batch_{n}_ms"] = time_ms(lambda: F.conv2d(x, w), iters=5, warmup=2)
     return out
@@ -914,6 +971,465 @@ def phase_train_times(fail, host, epoch):
     emit("train_times", cudnn_probe=cudnn_batch_probe())
 
 
+# --- the batch dumps ------------------------------------------------------------
+
+def have_dump_libs():
+    """The dumps' real datasets read images with Pillow and paths with PyYAML."""
+    return all(importlib.util.find_spec(m) is not None for m in ("PIL", "yaml"))
+
+
+def smooth_frame(rng, hw):
+    """A photo-like uint8 frame: a bicubic-upsampled coarse random field plus
+    mild noise (white noise would make JPEG decoding, and so the loader,
+    slower than on real frames)."""
+    from PIL import Image
+
+    h, w = hw
+    coarse = Image.fromarray(rng.randint(0, 256, (h // 32 + 1, w // 32 + 1, 3),
+                                         dtype=np.uint8))
+    field = np.asarray(coarse.resize((w, h), Image.BICUBIC), np.int16)
+    return np.clip(field + rng.randint(-8, 9, field.shape), 0, 255).astype(np.uint8)
+
+
+def write_splits(root, name, splits):
+    for split, lines in splits.items():
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        with open(os.path.join(root, name, split), "w") as f:
+            f.write("\n".join(lines))
+
+
+def make_dump_trees(root, with_files):
+    """The dumps' synthetic data under `root`: a KITTI raw tree of DUMP_FRAMES
+    frames (test split; train/val splits over the same frames for the
+    segmentation dump), a Matterport tree of MATTERPORT_FRAMES frames (test
+    split) with npy ground truth, and paths.yaml.  Without `with_files` only
+    the split files and the ground truth are written (the in-memory route).
+    Returns {name: path}."""
+    rng = np.random.RandomState(SEED)
+    raw, mp_raw = os.path.join(root, "kitti_raw"), os.path.join(root, "matterport_raw")
+    kitti = [f"seq0 {i} {'l' if i % 2 == 0 else 'r'}" for i in range(DUMP_FRAMES)]
+    matterport = [f"scan{i % 2} pos{i:03d} {i % 3} {i}" for i in range(MATTERPORT_FRAMES)]
+    paths = {"splits": os.path.join(root, "splits"),
+             "splits_cpu": os.path.join(root, "splits_cpu"),
+             "splits_timed": os.path.join(root, "splits_timed"),
+             "gt": os.path.join(root, "matterport_gt"),
+             "training_data": os.path.join(root, "kitti_training_data"),
+             "config": os.path.join(root, "paths.yaml")}
+    write_splits(paths["splits"], "kitti", {"test.txt": kitti, "train.txt": kitti[:20],
+                                            "val.txt": kitti[20:]})
+    write_splits(paths["splits"], "matterport", {"test.txt": matterport})
+    # the CPU twin of the KITTI dump covers the first batch
+    write_splits(paths["splits_cpu"], "kitti", {"test.txt": kitti[:DUMP_BATCH]})
+    write_splits(paths["splits_cpu"], "matterport", {"test.txt": matterport})
+    timed = (kitti * -(-TIMED_FRAMES // DUMP_FRAMES))[:TIMED_FRAMES]
+    write_splits(paths["splits_timed"], "kitti", {"test.txt": timed, "train.txt": timed,
+                                                  "val.txt": []})
+    os.makedirs(paths["gt"])
+    for line in matterport:
+        hw = MATTERPORT_HW
+        depth = (rng.rand(*hw) * 15 + 0.5) * (rng.rand(*hw) > 0.5)
+        stem = os.path.join(paths["gt"], "_".join(line.split()))
+        np.save(stem + "_groundtruth.npy", depth)
+        np.save(stem + "_freespace.npy", (rng.rand(*hw) > 0.3).astype(np.float32))
+    if not with_files:
+        return paths
+
+    import yaml
+    from PIL import Image
+
+    for line in kitti:
+        _, frame, side = line.split()
+        folder = os.path.join(raw, "seq0", "image_02" if side == "l" else "image_03", "data")
+        os.makedirs(folder, exist_ok=True)
+        Image.fromarray(smooth_frame(rng, KITTI_RAW_HW)).save(
+            os.path.join(folder, frame.zfill(10) + ".jpg"))
+    for line in matterport:
+        scan, pos, h, d = line.split()
+        folder = os.path.join(mp_raw, scan, scan, "matterport_color_images")
+        os.makedirs(folder, exist_ok=True)
+        Image.fromarray(smooth_frame(rng, MATTERPORT_RAW_HW)).save(
+            os.path.join(folder, f"{pos}_i{h}_{d}.jpg"))
+    with open(paths["config"], "w") as f:
+        yaml.safe_dump({"kitti": {"dataset": raw, "training_data": paths["training_data"]},
+                        "matterport": {"dataset": mp_raw}}, f)
+    return paths
+
+
+def in_memory(dataset_class):
+    """`dataset_class` with seeded in-memory images in place of decoded
+    files: the same {'image', 'idx'} samples and the same save_result."""
+    class InMemory(dataset_class):
+        def __getitem__(self, index):
+            rng = np.random.RandomState(SEED + index)
+            image = rng.randint(0, 256, (self.height, self.width, 3)).astype(np.float32)
+            return {"image": image / 255.0, "idx": index}
+    return InMemory
+
+
+class InMemoryInferenceManager(InferenceManager):
+    def create_dataloaders(self):
+        name = self.opt.inference_data_type
+        files = readlines(os.path.join(self.opt.split_root, name, "test.txt"))
+        dataset = in_memory(get_inference_dataset_class(name))(
+            None, files, self.opt.height, self.opt.width)
+        return DataLoader(dataset, self.opt.batch_size, shuffle=False,
+                          num_workers=self.opt.num_workers, drop_last=False), dataset
+
+
+class InMemoryTester(Tester):
+    def create_dataloaders(self):
+        name = self.opt.test_data_type
+        files = sorted(readlines(os.path.join(self.opt.split_root, name, "train.txt"))
+                       + readlines(os.path.join(self.opt.split_root, name, "val.txt")))
+        dataset = in_memory(seg_datasets.get_inference_dataset_class(name))(
+            None, files, self.opt.height, self.opt.width)
+        save_path = os.path.join(os.path.dirname(self.opt.split_root),
+                                 "kitti_training_data", self.opt.test_save_folder)
+        loader = DataLoader(dataset, self.opt.batch_size, shuffle=False,
+                            num_workers=self.opt.num_workers, drop_last=False)
+        return loader, dataset, save_path
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def drive(kind, argv, real):
+    """Run one dump entry point; returns (the manager, kernel launches).
+    kind 'dump' is footprints_tpu_torch.main --mode inference, 'seg' the
+    segmentation main; `real` picks the entry point itself, else the
+    in-memory manager on the same options."""
+    fused_conv3x3.launches = 0
+    if kind == "dump":
+        manager = (port_main.main(argv) if real else
+                   InMemoryInferenceManager(Options().parse(argv)))
+        if not real:
+            manager.run()
+    else:
+        manager = seg_main.main(argv) if real else InMemoryTester(SegOptions().parse(argv))
+        if not real:
+            manager.test()
+    sync(manager.device)
+    return manager, fused_conv3x3.launches
+
+
+def files_under(folder):
+    return {os.path.relpath(os.path.join(d, f), folder): os.path.join(d, f)
+            for d, _, fs in os.walk(folder) for f in fs if f.endswith(".npy")}
+
+
+def check_dump_files(fail, tag, folder, names, shape):
+    """Each expected file: float16 of `shape`, finite, the sigmoid channels
+    (all of a ground_seg map, channels 0-1 of a 4-channel dump) in [0,1]."""
+    files = files_under(folder)
+    fail.check(sorted(files) == sorted(names),
+               f"{tag}: {len(files)} files, expected {len(names)}: {sorted(files)[:4]}")
+    for name in sorted(files):
+        pred = np.load(files[name])
+        probs = pred[:2] if shape[0] == 4 else pred
+        ok = (pred.shape == shape and pred.dtype == np.float16
+              and np.isfinite(pred.astype(np.float32)).all()
+              and probs.min() >= 0 and probs.max() <= 1)
+        fail.check(ok, f"{tag}/{name}: shape {pred.shape} {pred.dtype}, range "
+                       f"[{pred.min()}, {pred.max()}]")
+    return files
+
+
+def worst_f16_gap(got, ref):
+    """Max over files of max(|got - ref| / (1 + |ref|)), float32 arithmetic:
+    within the F16_BAR when it is at most F16_BAR."""
+    worst = 0.0
+    for name, path in ref.items():
+        a = np.load(got[name]).astype(np.float32)
+        b = np.load(path).astype(np.float32)
+        worst = max(worst, float((np.abs(a - b) / (1 + np.abs(b))).max()))
+    return worst
+
+
+def byte_identical(run, folder):
+    """Dump serially then overlapped into two folders; (identical, n files)."""
+    out = {}
+    for overlap in (False, True):
+        run(os.path.join(folder, f"overlap_{overlap}"), overlap)
+        out[overlap] = {k: open(v, "rb").read()
+                        for k, v in files_under(os.path.join(folder, f"overlap_{overlap}")).items()}
+    return out[True] == out[False] and len(out[True]) > 0, len(out[True])
+
+
+def union_ms(spans):
+    """Time (ms) in which at least one of `spans` ran, from (start_ns,
+    end_ns, stream) tuples: the union of their intervals, so spans that
+    overlap count once."""
+    total, end = 0, float("-inf")
+    for start, stop, _ in sorted(spans):
+        total += max(0, stop - max(start, end))
+        end = max(end, stop)
+    return total / 1e6
+
+
+def same_stream_overlaps(spans):
+    """How many of `spans` start before the previous span on their stream
+    has ended."""
+    n, ends = 0, {}
+    for start, stop, stream in sorted(spans):
+        n += start < ends.get(stream, float("-inf"))
+        ends[stream] = max(ends.get(stream, float("-inf")), stop)
+    return n
+
+
+def span_summary(spans):
+    return {"ms_union": union_ms(spans),
+            "ms_summed": sum(stop - start for start, stop, _ in spans) / 1e6,
+            "streams": len({stream for _, _, stream in spans}),
+            "same_stream_overlaps": same_stream_overlaps(spans)}
+
+
+def profile_dump(run, batch):
+    """One overlapped dump under torch.profiler, read from the profiler's
+    raw device events: the device's busy share (the union of their
+    intervals over the dump's wall time, both under the profiler) beside
+    their summed durations, their streams and how many overlap on one
+    stream; the same for the block2 post-concat conv's kernels (those
+    linked by correlation id to a conv op of its input shape), and their
+    union's share of the busy time and of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        run(True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    raw = prof.profiler.kineto_results.events()
+    cliff_ops = {e.correlation_id() for e in raw
+                 if e.device_type() == DeviceType.CPU and "conv" in e.name()
+                 and e.shapes() and list(e.shapes()[0]) == [batch, *CLIFF_INPUT]}
+    device = [e for e in raw if e.device_type() == DeviceType.CUDA]
+    spans = [(e.start_ns(), e.end_ns(), e.device_resource_id()) for e in device]
+    cliff = [(e.start_ns(), e.end_ns(), e.device_resource_id()) for e in device
+             if e.linked_correlation_id() in cliff_ops]
+    busy, cliff_summary = span_summary(spans), span_summary(cliff)
+    return {"wall_ms": wall_ms, "busy_share": busy["ms_union"] / wall_ms,
+            "device": busy, "cliff_ops": len(cliff_ops), "cliff_kernels": len(cliff),
+            "cliff": cliff_summary,
+            "cliff_share_of_busy": cliff_summary["ms_union"] / max(busy["ms_union"], 1e-9),
+            "cliff_share_of_wall": cliff_summary["ms_union"] / wall_ms}
+
+
+def time_dumps(fail, make_manager, run_into, workdir, launches_per_batch):
+    """At each timed batch: imgs/s of the dump with its loader and writer
+    (host clock from the call to its return, which waits for the last
+    save), serial and overlapped in the order serial, overlapped,
+    overlapped, serial after one warm-up dump; the loader alone over the
+    same split; the cliff conv's time alone (cudnn_batch_probe), which
+    varies between calls and runs, so it is no share of a dump's time;
+    then one profiled dump."""
+    rows = {}
+    for batch in TIMED_BATCHES:
+        manager = make_manager(batch)
+        folder = os.path.join(workdir, f"timed_b{batch}")
+
+        def run(overlap):
+            return run_into(manager, folder, overlap)
+
+        run(False)  # warm-up: cuDNN's plans for this batch, the page cache
+        rates = {"serial": [], "overlapped": []}
+        fused_conv3x3.launches = 0
+        for overlap in (False, True, True, False):
+            sync(manager.device)
+            t0 = time.perf_counter()
+            n = run(overlap)
+            sync(manager.device)
+            rates["overlapped" if overlap else "serial"].append(
+                n / (time.perf_counter() - t0))
+        n_batches = -(-n // batch)
+        fail.check(fused_conv3x3.launches == 4 * n_batches * launches_per_batch,
+                   f"timed dump at batch {batch}: {fused_conv3x3.launches} launches, "
+                   f"expected {4 * n_batches * launches_per_batch}")
+        t0 = time.perf_counter()  # the loader alone: the host's rate limit
+        loaded = sum(len(b["idx"]) for b in manager.loader)
+        loader_rate = loaded / (time.perf_counter() - t0)
+        cliff_ms = cudnn_batch_probe((batch,))[f"batch_{batch}_ms"]
+        profiled = profile_dump(run, batch)
+        fail.check(profiled["cliff_kernels"] > 0,
+                   f"profiled dump at batch {batch}: no kernel linked to the cliff conv")
+        rows[f"batch_{batch}"] = {
+            "imgs_per_s_serial": rates["serial"],
+            "imgs_per_s_overlapped": rates["overlapped"],
+            "imgs_per_s_loader_alone": loader_rate,
+            "images": n, "batches": n_batches,
+            "cliff_ms_per_call_alone": cliff_ms,
+            "profile": profiled}
+    return rows
+
+
+def phase_dump(fail, workdir):
+    """main --mode inference: the KITTI dump at 192x640, its CPU twin, the
+    overlap check, a Matterport dump scored by the harness, and the times.
+    Returns the kernel launches of the GPU entry-point runs."""
+    real = have_dump_libs()
+    t0 = time.perf_counter()
+    paths = make_dump_trees(os.path.join(workdir, "data"), real)
+    tree_s = time.perf_counter() - t0
+    mm = ModelManager(save_folder=os.path.join(workdir, "fp"), is_inference=True,
+                      device="cpu", seed=SEED)
+    mm.save_model("weights")
+    weights = os.path.join(workdir, "fp", "weights")
+
+    def argv(device, data_type="kitti", batch=DUMP_BATCH, split_root=paths["splits"],
+             out=None, hw=(HEIGHT, WIDTH)):
+        return ["--mode", "inference", "--inference_data_type", data_type,
+                "--height", str(hw[0]), "--width", str(hw[1]),
+                "--batch_size", str(batch), "--num_workers", "8",
+                "--config_path", paths["config"], "--split_root", split_root,
+                "--encoder_depth", "34", "--load_path", weights, "--device", device,
+                "--inference_save_path", out]
+
+    route = ("footprints_tpu_torch.main.main (synthetic trees)" if real else
+             "InferenceManager on in-memory images (no Pillow/PyYAML)")
+    gpu_out, cpu_out = os.path.join(workdir, "kitti_gpu"), os.path.join(workdir, "kitti_cpu")
+    # the main path: counts set to 0 just before, read just after
+    manager, launches = drive("dump", argv("cuda", out=gpu_out), real)
+    n_batches = -(-DUMP_FRAMES // DUMP_BATCH)
+    fail.check(launches == LAUNCHES_PER_FORWARD * n_batches,
+               f"dump: {launches} kernel launches for {n_batches} batches, expected "
+               f"{LAUNCHES_PER_FORWARD} per batch")
+    names = [f"{i:03d}.npy" for i in range(DUMP_FRAMES)]
+    gpu_files = check_dump_files(fail, "dump", gpu_out, names, (4, HEIGHT, WIDTH))
+    _, cpu_launches = drive("dump", argv("cpu", split_root=paths["splits_cpu"], out=cpu_out),
+                            real)
+    cpu_files = check_dump_files(fail, "dump cpu", cpu_out, names[:DUMP_BATCH],
+                                 (4, HEIGHT, WIDTH))
+    gap = worst_f16_gap(gpu_files, cpu_files)
+    fail.check(gap <= F16_BAR and cpu_launches == 0,
+               f"dump: first batch GPU vs CPU gap {gap} (bar {F16_BAR}), "
+               f"{cpu_launches} launches on the CPU")
+
+    def run_into(m, folder, overlap):
+        m.savepath = folder
+        return m.run(overlap=overlap)
+
+    same, n_same = byte_identical(lambda f, o: run_into(manager, f, o),
+                                  os.path.join(workdir, "kitti_overlap"))
+    fail.check(same and n_same == DUMP_FRAMES,
+               f"dump: overlapped dump differs from the serial one ({n_same} files)")
+    emit("dump", route=route, frames=DUMP_FRAMES, batch=DUMP_BATCH, shape=[HEIGHT, WIDTH],
+         depth=34, launches=launches, launches_per_batch=launches / n_batches,
+         files=len(gpu_files), first_batch_gpu_vs_cpu=gap, bar=f"{F16_BAR} + {F16_BAR}|cpu|",
+         overlap_byte_identical=same, tree_seconds=tree_s)
+
+    # Matterport at predict_simple's matterport shape, scored by the harness
+    mp, mp_files = {}, {}
+    mp_launches = 0
+    for device in ("cuda", "cpu"):
+        out = os.path.join(workdir, f"matterport_{device}")
+        _, n = drive("dump", argv(device, "matterport", MATTERPORT_BATCH, out=out,
+                                  hw=MATTERPORT_HW), real)
+        mp_launches += n if device == "cuda" else 0
+        expected = LAUNCHES_PER_FORWARD * -(-MATTERPORT_FRAMES // MATTERPORT_BATCH)
+        fail.check(n == (expected if device == "cuda" else 0),
+                   f"matterport dump on {device}: {n} launches")
+        lines = readlines(os.path.join(paths["splits"], "matterport", "test.txt"))
+        mp_files[device] = check_dump_files(
+            fail, f"matterport {device}", out,
+            [f"{s}/{p}_{h}_{d}.npy" for s, p, h, d in map(str.split, lines)],
+            (4, *MATTERPORT_HW))
+        mp[device] = {metric: {k: float(v) for k, v in evaluate(
+            out, "matterport", metric, gt_dir=paths["gt"], split_root=paths["splits"],
+            download=False, verbose=False).items()} for metric in ("iou", "depth")}
+    # every file against its CPU twin, then the harness's metrics
+    mp_gap = worst_f16_gap(mp_files["cuda"], mp_files["cpu"])
+    fail.check(mp_gap <= F16_BAR, f"matterport dump: GPU vs CPU gap {mp_gap} (bar {F16_BAR})")
+    diffs = [abs(v - mp["cpu"][m][k]) for m in mp["cuda"] for k, v in mp["cuda"][m].items()]
+    fail.check(all(np.isfinite(v) for m in mp.values() for s in m.values() for v in s.values())
+               and max(diffs) <= 1e-2,
+               f"matterport metrics GPU {mp['cuda']} vs CPU {mp['cpu']}")
+    emit("dump", matterport=dict(frames=MATTERPORT_FRAMES, batch=MATTERPORT_BATCH,
+                                 shape=list(MATTERPORT_HW), launches=mp_launches,
+                                 gpu_vs_cpu=mp_gap, bar=f"{F16_BAR} + {F16_BAR}|cpu|",
+                                 metrics_gpu=mp["cuda"], metrics_cpu=mp["cpu"],
+                                 max_metric_gap=max(diffs), metric_bar=1e-2))
+
+    def make_manager(batch):
+        opts = Options().parse(argv("cuda", batch=batch, split_root=paths["splits_timed"],
+                                    out=gpu_out))
+        return (InferenceManager if real else InMemoryInferenceManager)(opts)
+
+    times = time_dumps(fail, make_manager, run_into, workdir, LAUNCHES_PER_FORWARD)
+    emit("dump", times=times, model="FootprintNetwork-34, f32, 192x640")
+    return launches + mp_launches
+
+
+def phase_seg_dump(fail, workdir):
+    """segmentation.main --mode inference: the ground_seg dump of the same
+    frames, its checks and times.  Returns the entry-point run's launches."""
+    real = have_dump_libs()
+    paths = {"splits": os.path.join(workdir, "data", "splits"),
+             "splits_timed": os.path.join(workdir, "data", "splits_timed"),
+             "config": os.path.join(workdir, "data", "paths.yaml")}
+    net = Segmentor(34, True, generator=torch.Generator().manual_seed(SEED))
+    params, state = segmentor_jax_params_from_state_dict(net.state_dict(), 34, True)
+    weights = os.path.join(workdir, "seg", "epoch_0")
+    save_checkpoint(os.path.join(weights, "checkpoint.npz"),
+                    {"params": params, "state": state})
+
+    def argv(batch=DUMP_BATCH, folder="ground_seg", split_root=paths["splits"]):
+        return ["--mode", "inference", "--test_data_type", "kitti",
+                "--height", str(HEIGHT), "--width", str(WIDTH),
+                "--batch_size", str(batch), "--num_workers", "8",
+                "--config_path", paths["config"], "--split_root", split_root,
+                "--encoder_depth", "34", "--load_path", weights, "--device", "cuda",
+                "--test_save_folder", folder]
+
+    route = ("footprints_tpu_torch.preprocessing.segmentation.main.main" if real else
+             "Tester on in-memory images (no Pillow/PyYAML)")
+    tester, launches = drive("seg", argv(), real)
+    n_batches = -(-DUMP_FRAMES // DUMP_BATCH)
+    fail.check(launches == SEG_LAUNCHES_PER_FORWARD * n_batches,
+               f"seg_dump: {launches} kernel launches for {n_batches} batches, expected "
+               f"{SEG_LAUNCHES_PER_FORWARD} per batch")
+    lines = sorted(readlines(os.path.join(paths["splits"], "kitti", "train.txt"))
+                   + readlines(os.path.join(paths["splits"], "kitti", "val.txt")))
+    names = [f"seq0/{'image_02' if side == 'l' else 'image_03'}/data/{frame.zfill(10)}.npy"
+             for _, frame, side in (line.split() for line in lines)]
+    files = check_dump_files(fail, "seg_dump", tester.save_path, names, (1, HEIGHT, WIDTH))
+
+    def run_into(t, folder, overlap):
+        t.save_path = folder
+        return t.test(overlap=overlap)
+
+    same, n_same = byte_identical(lambda f, o: run_into(tester, f, o),
+                                  os.path.join(workdir, "seg_overlap"))
+    fail.check(same and n_same == DUMP_FRAMES,
+               f"seg_dump: overlapped dump differs from the serial one ({n_same} files)")
+
+    # the GPU forward against the CPU forward (plain versions), every scale
+    cpu = Segmentor(34, True).eval()
+    cpu.load_state_dict(tester.net.state_dict())
+    x = torch.from_numpy(np.random.RandomState(SEED + 2).rand(
+        2, HEIGHT, WIDTH, 3).astype(np.float32))
+    with torch.inference_mode():
+        got = tester.net(x.to(tester.device))
+        ref = cpu(x)
+    maes = {k: (g.float().cpu() - r).abs().mean().item() for k, g, r in zip(SCALES, got, ref)}
+    for k, mae in maes.items():
+        fail.check(mae < 1e-4, f"seg_dump: GPU vs CPU Segmentor at scale {k}: MAE {mae}")
+    emit("seg_dump", route=route, frames=DUMP_FRAMES, batch=DUMP_BATCH,
+         shape=[HEIGHT, WIDTH], depth=34, psp=True, launches=launches,
+         launches_per_batch=launches / n_batches, files=len(files),
+         overlap_byte_identical=same, gpu_vs_cpu_mae=maes, bar=1e-4)
+
+    def make_manager(batch):
+        opts = SegOptions().parse(argv(batch, "timed", paths["splits_timed"]))
+        return (Tester if real else InMemoryTester)(opts)
+
+    times = time_dumps(fail, make_manager, run_into, workdir, SEG_LAUNCHES_PER_FORWARD)
+    emit("seg_dump", times=times, model="Segmentor-34 with PSP, f32, 192x640")
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -935,16 +1451,28 @@ def main():
     build.load_library()
     emit("build", seconds=time.perf_counter() - t0, library=str(build.library_path()))
 
-    max_abs = phase_sites(fail)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    max_abs = timed("sites", phase_sites, fail)
     with tempfile.TemporaryDirectory() as workdir:
-        launches, net = phase_main(fail, workdir)
-    totals = phase_times(net)
-    phase_profile(net)
+        launches, net = timed("main", phase_main, fail, workdir)
+    totals = timed("times", phase_times, net)
+    timed("profile", phase_profile, net)
     del net
     with tempfile.TemporaryDirectory() as workdir:
-        train_launches, host, epoch = phase_train(fail, workdir)
-    phase_train_times(fail, host, epoch)
-    launches += train_launches
+        train_launches, host, epoch = timed("train", phase_train, fail, workdir)
+    timed("train_times", phase_train_times, fail, host, epoch)
+    with tempfile.TemporaryDirectory() as workdir:
+        dump_launches = timed("dump", phase_dump, fail, workdir)
+        seg_launches = timed("seg_dump", phase_seg_dump, fail, workdir)
+    launches += train_launches + dump_launches + seg_launches
+    emit("seconds", **seconds)
 
     if fail:
         print(f"chip_smoke: {len(fail)} check(s) failed", file=sys.stderr)

@@ -2,15 +2,19 @@
 port's state_dict, both ways, and the JAX flat order of the parameters.
 
 ``state_dict_from_jax_params`` is the inverse of
-footprints_tpu/convert/torch_checkpoint.py:footprint_params_from_state_dict.
+footprints_tpu/convert/torch_checkpoint.py:footprint_params_from_state_dict,
+and ``segmentor_state_dict_from_jax_params`` that of
+``segmentor_params_from_state_dict``.
 HWIO conv weights become OIHW; BN ``scale``/``bias``/``mean``/``var`` become
 ``weight``/``bias``/``running_mean``/``running_var``.  Keys the JAX pytree
 does not hold get torch's defaults: the decoders' unused ConvBlock BNs
 (weight 1, bias 0, mean 0, var 1) and every ``num_batches_tracked`` (0).
-The result loads into ``FootprintNetwork`` with ``load_state_dict(strict=True)``.
+The result loads into ``FootprintNetwork`` (``Segmentor``) with
+``load_state_dict(strict=True)``.
 
-``jax_params_from_state_dict`` is the port's own copy of
-``footprint_params_from_state_dict`` (state_dict -> pytrees, numpy).
+``jax_params_from_state_dict`` and ``segmentor_jax_params_from_state_dict``
+are the port's own copies of ``footprint_params_from_state_dict`` and
+``segmentor_params_from_state_dict`` (state_dict -> pytrees, numpy).
 
 ``ravel_params``/``unravel_params`` give the order of
 ``jax.flatten_util.ravel_pytree``, which optax.flatten's Adam moments use:
@@ -26,6 +30,7 @@ accepts; this module imports no JAX.
 import numpy as np
 import torch
 
+from .models.segmentor import PSP_POOL_SIZES
 from .nn.resnet import ARCHS
 
 
@@ -95,6 +100,19 @@ def state_dict_from_jax_params(params, state, depth=34):
     _put_encoder(sd, params["encoder"], state["encoder"], depth)
     _put_decoder(sd, "mask_decoder", params["mask_decoder"])
     _put_decoder(sd, "depth_decoder", params["depth_decoder"])
+    return sd
+
+
+def segmentor_state_dict_from_jax_params(params, state, depth=34, use_psp=True):
+    """JAX Segmentor (params, state) -> the port's state_dict (CPU f32), which
+    is the reference Segmentor's layout."""
+    sd = {}
+    _put_encoder(sd, params["encoder"], state["encoder"], depth)
+    _put_decoder(sd, "decoder", params["decoder"])
+    if use_psp:  # reference PSP block i pools to PSP_POOL_SIZES[i - 1] cells
+        for i, s in enumerate(PSP_POOL_SIZES, 1):
+            _put_conv(sd, f"decoder.PSP.block{i}.reduce",
+                      params["decoder"]["psp"][f"reduce{s}"])
     return sd
 
 
@@ -168,6 +186,21 @@ def jax_params_from_state_dict(sd, depth=34):
     p["encoder"], s["encoder"] = _get_encoder(sd, depth)
     p["mask_decoder"], s["mask_decoder"] = _get_decoder(sd, "mask_decoder")
     p["depth_decoder"], s["depth_decoder"] = _get_decoder(sd, "depth_decoder")
+    return p, s
+
+
+def segmentor_jax_params_from_state_dict(sd, depth=34, use_psp=True):
+    """The port's (or the reference's) Segmentor state_dict -> the JAX
+    Segmentor (params, state) pytrees of numpy arrays (the port's copy of
+    ``segmentor_params_from_state_dict``)."""
+    sd = {k: _numpy(v) for k, v in sd.items()}
+    p, s = {}, {}
+    p["encoder"], s["encoder"] = _get_encoder(sd, depth)
+    p["decoder"], s["decoder"] = _get_decoder(sd, "decoder")
+    if use_psp:
+        p["decoder"]["psp"] = {
+            f"reduce{ps}": _get_conv(sd, f"decoder.PSP.block{i}.reduce", with_bias=False)
+            for i, ps in enumerate(PSP_POOL_SIZES, 1)}
     return p, s
 
 

@@ -39,11 +39,13 @@ class FootprintsDataset:
 
     # -- shared loading helpers ------------------------------------------------
 
-    def load_and_resize_image(self, path, do_flip):
+    def load_and_resize_image(self, path, do_flip, method=None):
+        """``method``: a PIL resampling filter, LANCZOS by default."""
         from PIL import Image
 
-        image = Image.open(path).resize((self.width, self.height),
-                                        resample=Image.LANCZOS)
+        image = Image.open(path).resize(
+            (self.width, self.height),
+            resample=Image.LANCZOS if method is None else method)
         if do_flip:
             image = image.transpose(method=Image.FLIP_LEFT_RIGHT)
         return image

@@ -242,7 +242,8 @@ def decompact_on_device(batch, scheme=None, s2d_keys=(), p4_keys=()):
     if s2d_keys or p4_keys:
         raise NotImplementedError(
             "packed '@s2d'/'@s2d2' targets arrive with the packed training "
-            "heads (s2d_head/p4_head), which are not ported yet")
+            "heads (s2d_head/p4_head) of the bf16 mixed-precision training "
+            "slice, which is not ported yet")
     out = {}
     lut = None
     for key, val in batch.items():

@@ -38,7 +38,7 @@ class ModelManager:
         if pretrained_encoder is not None:
             raise NotImplementedError(
                 "--pretrained_encoder is not ported yet; it arrives with the "
-                "torchvision weight converter (export and convert slice)")
+                "export and convert slice (the torchvision weight converter)")
         self.save_folder = save_folder
         self.device = select_device(device)
         self.depth = depth

@@ -1,3 +1,4 @@
 from .footprint import SCALES, FootprintNetwork
+from .segmentor import Segmentor
 
-__all__ = ["SCALES", "FootprintNetwork"]
+__all__ = ["SCALES", "FootprintNetwork", "Segmentor"]

@@ -35,19 +35,24 @@ DECODER_CHANNELS = (256, 128, 64, 64)
 
 
 class SkipDecoder(nn.Module):
-    """Monodepth2-style U-Net decoder over 5 encoder features."""
+    """Monodepth2-style U-Net decoder over 5 encoder features.  ``in_ch``
+    is the deepest input's width (the last feature's unless a bottleneck
+    widens it); ``out_scales`` upsample the '1/8', '1/4' and '1/2' heads
+    to full resolution (1, 1, 1 leaves them at their native scales)."""
 
-    def __init__(self, enc_channels, apply_sigmoid, out_ch=2):
+    def __init__(self, enc_channels, apply_sigmoid, out_ch=2, in_ch=None,
+                 out_scales=(8, 4, 2)):
         super().__init__()
-        c_in = enc_channels[-1]
+        c_in = enc_channels[-1] if in_ch is None else in_ch
         skips = enc_channels[-2::-1]
         for i, (c_out, skip_ch) in enumerate(zip(DECODER_CHANNELS, skips), 1):
             block = ConvUpsampleAndConcatBlock(c_in, c_out, skip_ch, fused=i == 4)
             setattr(self, f"block{i}", block)
             c_in = c_out
-        self.outconv1 = OutConvBlock(128, out_ch, 8, apply_sigmoid)
-        self.outconv2 = OutConvBlock(64, out_ch, 4, apply_sigmoid)
-        self.outconv3 = OutConvBlock(64, out_ch, 2, apply_sigmoid)
+        s8, s4, s2 = out_scales
+        self.outconv1 = OutConvBlock(128, out_ch, s8, apply_sigmoid)
+        self.outconv2 = OutConvBlock(64, out_ch, s4, apply_sigmoid)
+        self.outconv3 = OutConvBlock(64, out_ch, s2, apply_sigmoid)
         self.outconv4 = nn.Sequential(ConvBlock(64, 32),
                                       OutConvBlock(32, out_ch, 1, apply_sigmoid))
 

@@ -40,7 +40,7 @@ class InferenceManager:
         if artifact is not None:
             raise NotImplementedError(
                 "--artifact serving is not ported yet; it arrives with the "
-                "export slice")
+                "export and convert slice")
         if model_load_folder is None:
             if model_name is None:
                 raise ValueError(

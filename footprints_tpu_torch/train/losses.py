@@ -63,7 +63,8 @@ def compute_losses(predictions, targets, config: LossConfig = LossConfig()):
     for scale_key, output in predictions.items():
         if scale_key in ("1/1_s2d", "1/2_s2d2"):
             raise NotImplementedError(
-                f"the packed {scale_key!r} head is not ported yet")
+                f"the packed {scale_key!r} head is not ported yet; it arrives "
+                "with the bf16 mixed-precision training slice")
         output = output.float()
         l_vis = torch.mean(bce_with_logits(output[..., 0], targets["visible_ground"]))
         l_all = three_class_loss(output[..., 1], targets["all_ground"],

@@ -36,7 +36,8 @@ class TrainStepConfig:
         if self.compute_dtype in _MIXED:
             raise NotImplementedError(
                 "bfloat16 mixed-precision training is not ported yet; it "
-                "arrives with the mixed-precision slice (with the s2d/p4 heads)")
+                "arrives with the bf16 mixed-precision training slice (with the "
+                "packed s2d/p4 heads)")
         if self.compute_dtype not in _F32:
             raise ValueError(f"compute_dtype={self.compute_dtype!r} not "
                              f"supported; one of {_F32 + _MIXED}")

@@ -56,7 +56,8 @@ class TrainManager:
         for flag in ("s2d_head", "p4_head"):
             if getattr(options, flag, "auto") == "on":
                 raise NotImplementedError(
-                    f"--{flag} on: the packed training heads are not ported yet")
+                    f"--{flag} on: the packed training heads are not ported yet; "
+                    "they arrive with the bf16 mixed-precision training slice")
         self.train_loader, self.val_loader = self.create_dataloaders()
         steps_per_epoch = max(len(self.train_loader), 1)
         print(f"datasets done! train size - {len(self.train_loader.dataset)} images; "

@@ -1,7 +1,8 @@
 """Tests of the port that need the card: the CUDA kernel against its plain
 PyTorch version, the fused wrappers' gradients on the card against CPU
-autograd through the plain version, the device prefetcher's copy, and the
-model's GPU forward and train step against the CPU's.
+autograd through the plain version, the device prefetcher's copy, the
+models' GPU forward and train step against the CPU's, and the batch dump's
+overlapped loop against its serial order.
 
 They skip on a host without CUDA.  This file imports neither JAX nor the JAX
 package, so it also runs on a GPU host that has no JAX:
@@ -15,7 +16,8 @@ import torch
 
 from footprints_tpu_torch.data import DevicePrefetcher
 from footprints_tpu_torch.data.compact import BatchCompactor, decompact_on_device
-from footprints_tpu_torch.models import SCALES, FootprintNetwork
+from footprints_tpu_torch.eval.inference import dump_predictions, pad_batch
+from footprints_tpu_torch.models import SCALES, FootprintNetwork, Segmentor
 from footprints_tpu_torch.ops import fused_conv as fc
 from footprints_tpu_torch.train import step as tstep
 
@@ -270,3 +272,63 @@ def test_train_step_gpu_matches_cpu(cuda_device):
     for k, v in sd_cpu.items():
         if "running" in k:
             torch.testing.assert_close(sd_gpu[k], v, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("use_psp", [True, False])
+def test_segmentor_gpu_forward_matches_cpu(cuda_device, use_psp):
+    """All 4 logit maps within MAE 1e-4 of the CPU forward (the plain
+    versions), and 5 kernel launches per forward (block4 and the tail of
+    the one decoder)."""
+    net_gpu = Segmentor(34, use_psp, device=cuda_device,
+                        generator=torch.Generator().manual_seed(5)).eval()
+    net_cpu = Segmentor(34, use_psp).eval()
+    net_cpu.load_state_dict(net_gpu.state_dict())
+    x = torch.rand(2, 64, 128, 3, generator=torch.Generator().manual_seed(6))
+    before = fc.fused_conv3x3.launches
+    with torch.no_grad():
+        got = net_gpu(x.to(cuda_device))
+        ref = net_cpu(x)
+    assert fc.fused_conv3x3.launches == before + 5
+    assert len(got) == 4
+    for k, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape
+        assert (g.cpu() - r).abs().mean() < 1e-4, k
+
+
+@pytest.mark.parametrize("model", ["footprint", "segmentor"])
+def test_overlapped_dump_is_byte_identical_to_serial(cuda_device, model):
+    """dump_predictions on the card: pinned non_blocking copies both ways,
+    batch n+1 queued before batch n is saved; the saved bytes equal the
+    serial order's and a plain synchronous forward's, padded tail included."""
+    g = torch.Generator().manual_seed(7)
+    if model == "footprint":
+        net = FootprintNetwork(18, device=cuda_device, generator=g).eval()
+
+        def forward(x):
+            return net(x, scales=("1/1",))["1/1"].to(torch.float16)
+    else:
+        net = Segmentor(18, True, device=cuda_device, generator=g).eval()
+
+        def forward(x):
+            return torch.sigmoid(net(x, scales=("1/1",))[0][..., 0]).to(torch.float16)
+    rng = np.random.RandomState(8)
+    batches = [{"image": rng.rand(n, 64, 128, 3).astype(np.float32),
+                "idx": np.arange(3 * i, 3 * i + n)} for i, n in enumerate((3, 3, 2))]
+    with torch.inference_mode():
+        want = {}
+        for b in batches:
+            x = torch.from_numpy(pad_batch(b["image"], 3)).to(cuda_device)
+            for i, p in zip(b["idx"], forward(x).cpu().numpy()):
+                want[int(i)] = p.tobytes()
+    outs = {}
+    for overlap in (False, True):
+        saved = {}
+
+        def save_batch(writer, inputs, preds):
+            for i, p in zip(inputs["idx"], preds):
+                writer.submit(lambda i=int(i), p=p: saved.__setitem__(i, p.tobytes()))
+
+        assert dump_predictions(batches, forward, save_batch, batch_size=3,
+                                device=cuda_device, overlap=overlap) == 8
+        outs[overlap] = saved
+    assert len(want) == 8 and outs[False] == want and outs[True] == want

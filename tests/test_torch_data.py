@@ -17,7 +17,8 @@ from footprints_tpu.data.compact import BatchCompactor as JaxBatchCompactor
 from footprints_tpu.data.compact import decompact_batch_np
 from footprints_tpu_torch.core.config import load_config, readlines
 from footprints_tpu_torch.data import (BackgroundWriter, DataLoader, DevicePrefetcher,
-                                       KITTIDataset, get_dataset_class)
+                                       KITTIDataset, MatterportDataset,
+                                       get_dataset_class)
 from footprints_tpu_torch.data.compact import BatchCompactor, decompact_on_device
 
 from .test_trainer_e2e import _make_kitti_tree
@@ -124,12 +125,11 @@ def test_device_prefetcher_on_cpu_keeps_order_and_decodes():
     assert all(b["x"].dtype == torch.float32 for b in out)
 
 
-def test_matterport_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_dataset_class("matterport")
+def test_training_dataset_registry():
+    assert get_dataset_class("kitti") is KITTIDataset
+    assert get_dataset_class("matterport") is MatterportDataset
     with pytest.raises(KeyError):
         get_dataset_class("nyu")
-    assert get_dataset_class("kitti") is KITTIDataset
 
 
 def test_background_writer_runs_in_order_and_surfaces_errors():

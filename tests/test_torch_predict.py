@@ -103,18 +103,34 @@ def test_select_device_turns_tf32_off(monkeypatch):
         utils.select_device("meta")
 
 
+_IMPORT_ALL = (
+    "import pkgutil, importlib, sys\n"
+    "import footprints_tpu_torch as pkg\n"
+    "import footprints_tpu_torch.main, footprints_tpu_torch.train.trainer\n"
+    "import footprints_tpu_torch.data, footprints_tpu_torch.data.compact\n"
+    "import footprints_tpu_torch.eval.inference, footprints_tpu_torch.eval.evaluate_model\n"
+    "import footprints_tpu_torch.models.segmentor\n"
+    "import footprints_tpu_torch.preprocessing.segmentation.main\n"
+    "import footprints_tpu_torch.preprocessing.segmentation.inference\n"
+    "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+    "    importlib.import_module(m.name)\n"
+    "import chip_smoke\n"
+)
+
+
+def _run_python(code):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Nor, at import, the optional packages of the data path and logger
-    (PIL, cv2, PyYAML, matplotlib, tensorboardX), which a card host may
-    lack."""
-    code = (
-        "import pkgutil, importlib, sys\n"
-        "import footprints_tpu_torch as pkg\n"
-        "import footprints_tpu_torch.main, footprints_tpu_torch.train.trainer\n"
-        "import footprints_tpu_torch.data, footprints_tpu_torch.data.compact\n"
-        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+    """Nor, at import, the optional packages of the data path, the dumps,
+    the harness and the logger (PIL, cv2, PyYAML, matplotlib,
+    tensorboardX), which a card host may lack."""
+    code = _IMPORT_ALL + (
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'optax', 'footprints_tpu'))\n"
         "assert not bad, bad\n"
@@ -123,8 +139,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert not lazy, lazy\n"
         "print(len([k for k in sys.modules if k.startswith('footprints_tpu_torch')]))\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 30
+    assert int(_run_python(code).strip().splitlines()[-1]) >= 45
+
+
+def test_port_imports_with_the_optional_packages_blocked():
+    """A host without PIL, OpenCV, matplotlib or PyYAML (an import of them
+    raises ImportError) still imports every module and chip_smoke.py."""
+    code = ("import sys\n"
+            "for name in ('PIL', 'cv2', 'matplotlib', 'yaml'):\n"
+            "    sys.modules[name] = None\n") + _IMPORT_ALL + (
+        "try:\n"
+        "    import PIL\n"
+        "except ImportError:\n"
+        "    print('blocked')\n")
+    assert _run_python(code).strip().splitlines()[-1] == "blocked"

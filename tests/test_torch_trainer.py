@@ -104,10 +104,9 @@ def test_log_cadence_matches_jax():
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (("--mode", "inference"), NotImplementedError, "batch-dump"),
+    (("--p4_head", "on"), NotImplementedError, "mixed-precision training slice"),
     (("--compute_dtype", "bfloat16"), NotImplementedError, "mixed-precision"),
     (("--s2d_head", "on"), NotImplementedError, "packed"),
-    (("--training_dataset", "matterport"), NotImplementedError, "not ported yet"),
     (("--pretrained_encoder", "download"), NotImplementedError, "not ported yet"),
 ])
 def test_paths_not_ported_yet_raise(tree, extra, exc, match):
