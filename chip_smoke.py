@@ -69,7 +69,31 @@ final result line:
               operators by input shape, in full in
               smoke_out/profile_train_b12.json; and
               cuDNN's time for the decoder's block2 post-concat conv at
-              batch 4, 8, 12 and 16;
+              batch 4, 8, 12 and 16, then for every conv of both models'
+              decoders that cuDNN runs (recorded from a forward), at each
+              batch, with the default heuristics and with
+              torch.backends.cudnn.benchmark on (restored after), and the
+              shapes and batches on a cliff (smoke_out/cudnn_probe.json);
+  8b. train_bf16  on phase 7's data, main --mode train --compute_dtype
+              bfloat16 (the packed heads on by 'auto'): 4 steps and the
+              step-0 validation, 50 launches all on the bf16 route, f32
+              masters and checkpoint, the packed '@s2d'/'@s2d2' targets on
+              the card batch, and a resume; at batch 2 on a seeded noise
+              batch, the GPU bf16 step's gradient no farther from an f64
+              CPU step than twice a CPU bf16 step's (whole, and each leaf
+              plus 1e-3; exact-zero mask logits counted), and the f32 step
+              with the packed heads against the one without (loss terms
+              1e-6 relative, the whole gradient ||d||/||ref|| < 1e-5,
+              beside the same step run twice); then one bf16 step from a
+              synthetic torchvision-layout ResNet-34 --pretrained_encoder
+              file, its step-0 encoder equal to the file's tensors;
+  8c. train_bf16_times  the step alone on a batch on the card, bf16 at
+              batch 12 and 16 with and without the packed heads (in turns:
+              on, off, off, on) and f32 at 12: ms, imgs/s, peak memory,
+              split, and one profiled step's
+              busy time (union of device intervals); the trainer with its
+              loader (bf16) over 16 batches of 12 after an untimed first,
+              and the loader alone;
   9. dump     writes a seeded FootprintNetwork-34 checkpoint.npz and dumps a
               synthetic KITTI test split of 26 frames (375x1242) through
               footprints_tpu_torch.main --mode inference on the GPU at
@@ -155,10 +179,12 @@ from footprints_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from footprints_tpu_torch.convert import segmentor_jax_params_from_state_dict
 from footprints_tpu_torch.core.config import readlines
 from footprints_tpu_torch.data import DataLoader, collate, get_inference_dataset_class
+from footprints_tpu_torch.data.compact import decompact_on_device
 from footprints_tpu_torch.eval import evaluate
 from footprints_tpu_torch.eval.inference import InferenceManager
 from footprints_tpu_torch.model_manager import ModelManager
 from footprints_tpu_torch.models import SCALES, FootprintNetwork, Segmentor
+from footprints_tpu_torch.nn import resnet
 from footprints_tpu_torch.preprocessing.segmentation import datasets as seg_datasets
 from footprints_tpu_torch.preprocessing.segmentation import main as seg_main
 from footprints_tpu_torch.preprocessing.segmentation import trainer as seg_trainer
@@ -170,7 +196,7 @@ from footprints_tpu_torch.ops import fused_conv as fc
 from footprints_tpu_torch.ops.fused_conv import (fused_conv3x3,
                                                  fused_conv3x3_plain)
 from footprints_tpu_torch.options import Options
-from footprints_tpu_torch.train.losses import compute_losses
+from footprints_tpu_torch.train.losses import TARGET_KEYS, compute_losses
 from footprints_tpu_torch.train.step import (TrainStepConfig, build_train_step, forward_in,
                                              make_optimizer)
 from footprints_tpu_torch.train.trainer import SEED as TRAIN_SEED
@@ -195,6 +221,9 @@ TF32_PRODUCTS_PER_MAC = 3  # the f32 route's 3xTF32 split
 ROUTES = {torch.float32: "mma_tf32x3", torch.bfloat16: "mma_bf16"}
 LAUNCHES_PER_FORWARD = 10  # 5 sites x 2 decoders
 TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES = 12, 4, 1
+# the FootprintNetwork trainer's rate with its loader: 16 batches of 12 after
+# one untimed batch, as the seg trainer's
+TRAIN_TIMED_BATCHES = 16
 CHECK_BATCH = 2  # the GPU-vs-CPU train step
 KITTI_RAW_HW = (375, 1242)
 DUMP_BATCH, DUMP_FRAMES = 12, 26  # options.py's default batch; a padded tail of 2
@@ -602,11 +631,12 @@ def phase_profile(net):
 
 # --- training -----------------------------------------------------------------
 
-def make_kitti_tree(root, n_frames, n_val, seed):
+def make_kitti_tree(root, n_frames, n_val, seed, batches=(TRAIN_STEPS,)):
     """A synthetic KITTI tree laid out as the trainer reads it (the layout of
     tests/test_trainer_e2e.py), at KITTI's raw frame size: jpg frames and
     the ground_seg, hidden_depths, depth_masks, moving_objects and
-    stereo_matching_disps npys.  Returns (paths.yaml, split root)."""
+    stereo_matching_disps npys.  Returns (paths.yaml, {b: the split root
+    whose train split is b batches of TRAIN_BATCH, cycling the frames})."""
     import yaml
     from PIL import Image
 
@@ -635,16 +665,16 @@ def make_kitti_tree(root, n_frames, n_val, seed):
         os.makedirs(folder, exist_ok=True)
         np.save(os.path.join(folder, frame + ".npy"),
                 (rng.rand(h, w) * 50 + 5).astype(np.float32))
-    splits = os.path.join(root, "splits")
-    os.makedirs(os.path.join(splits, "kitti"))
-    with open(os.path.join(splits, "kitti", "train.txt"), "w") as f:
-        f.write("\n".join(lines))
-    with open(os.path.join(splits, "kitti", "val.txt"), "w") as f:
-        f.write("\n".join(lines[:n_val]))
+    roots = {}
+    for b in batches:
+        roots[b] = os.path.join(root, "splits" if b == TRAIN_STEPS else f"splits_{b}")
+        n = TRAIN_BATCH * b
+        write_splits(roots[b], "kitti", {"train.txt": (lines * n)[:n],
+                                         "val.txt": lines[:n_val]})
     config = os.path.join(root, "paths.yaml")
     with open(config, "w") as f:
         yaml.safe_dump({"kitti": {"dataset": raw, "training_data": td}}, f)
-    return config, splits
+    return config, roots
 
 
 class InMemorySamples:
@@ -672,9 +702,11 @@ class InMemorySamples:
 
 
 class InMemoryTrainManager(TrainManager):
+    train_batches = TRAIN_STEPS
+
     def create_dataloaders(self):
         bs = self.opt.batch_size
-        return (DataLoader(InMemorySamples(bs * TRAIN_STEPS, 0), bs, shuffle=True,
+        return (DataLoader(InMemorySamples(bs * self.train_batches, 0), bs, shuffle=True,
                            num_workers=self.opt.num_workers, seed=TRAIN_SEED),
                 DataLoader(InMemorySamples(bs, 10_000), bs, shuffle=True,
                            num_workers=2, drop_last=True, seed=TRAIN_SEED))
@@ -684,20 +716,32 @@ def finite_losses(losses):
     return all(np.isfinite(v) for v in losses.values())
 
 
-def train_step_on(device, host, dtype=torch.float32):
-    """One train step of the seeded FootprintNetwork-34 on `device` in
-    `dtype` (f64 only on the CPU, the plain versions): (loss metrics as
-    floats, f64 grads by name on the CPU, BN running stats)."""
+def train_step_on(device, host, dtype=torch.float32, compute="float32", heads=False):
+    """One train step of the seeded FootprintNetwork-34 on `device`, its
+    params in `dtype` (f64 only on the CPU, the plain versions), the forward
+    in `compute` ('float32' or 'bfloat16'), with or without the packed
+    heads: (loss metrics as floats, f64 grads by name on the CPU, BN running
+    stats, the params' and grads' dtypes, the count of mask logits that are
+    exactly 0)."""
     mm = ModelManager(device=device, seed=SEED, steps_per_epoch=TRAIN_STEPS)
     mm.net.to(dtype)  # in place: the optimizer keeps the same parameters
-    step = build_train_step(mm.net, mm.optimizer, mm.config)
+    zeros = []
+    mm.net.mask_decoder.register_forward_hook(
+        lambda module, inputs, out: zeros.append(sum(int((v == 0).sum())
+                                                     for v in out.values())))
+    config = TrainStepConfig(steps_per_epoch=TRAIN_STEPS, compute_dtype=compute,
+                             s2d_head=heads, p4_head=heads)
+    step = build_train_step(mm.net, mm.optimizer, config)
     metrics = step(0, {k: torch.from_numpy(v).to(device, dtype)
                        for k, v in host.items()})
     grads = {n: p.grad.detach().cpu().double() for n, p in mm.net.named_parameters()
              if p.grad is not None}
     stats = {k: v.detach().cpu().double() for k, v in mm.net.state_dict().items()
              if "running" in k}
-    return {k: float(v) for k, v in metrics.items() if k != "lr"}, grads, stats
+    dtypes = {p.dtype for p in mm.net.parameters()} | {g.dtype for g in (
+        p.grad for p in mm.net.parameters()) if g is not None}
+    return ({k: float(v) for k, v in metrics.items() if k != "lr"}, grads, stats, dtypes,
+            zeros[0])
 
 
 def worst_grad_leaf(got, ref):
@@ -710,7 +754,8 @@ def worst_grad_leaf(got, ref):
 
 def phase_train(fail, workdir):
     """Train through the entry point; resume; hold a GPU step against a
-    CPU step.  Returns (launches, a batch-12 host batch, the epoch stats)."""
+    CPU step.  Returns (launches, a batch-12 host batch, the epoch stats,
+    the run: its argv, route and split roots, for the later phases)."""
     have_data_libs = all(importlib.util.find_spec(m) is not None
                          for m in ("PIL", "cv2", "yaml"))
     log_path = os.path.join(workdir, "train_logs")
@@ -725,14 +770,17 @@ def phase_train(fail, workdir):
         route = (f"footprints_tpu_torch.main.main (synthetic KITTI tree, "
                  f"{KITTI_RAW_HW[0]}x{KITTI_RAW_HW[1]} frames)")
         config, splits = make_kitti_tree(os.path.join(workdir, "kitti"),
-                                         TRAIN_BATCH * TRAIN_STEPS, TRAIN_BATCH, SEED)
-        argv += ["--config_path", config, "--split_root", splits]
+                                         TRAIN_BATCH * TRAIN_STEPS, TRAIN_BATCH, SEED,
+                                         batches=(TRAIN_STEPS, 1, TRAIN_TIMED_BATCHES + 1))
+        argv += ["--config_path", config, "--split_root", splits[TRAIN_STEPS]]
         manager_class = TrainManager
     else:
         route = "TrainManager with in-memory samples (no PIL/OpenCV/PyYAML)"
         argv += ["--config_path", "unused"]
         manager_class = InMemoryTrainManager
+        splits = None
     tree_s = time.perf_counter() - t0
+    run = {"argv": argv, "real": have_data_libs, "splits": splits, "route": route}
 
     # the main path: counts set to 0 just before, read just after
     fused_conv3x3.launches = 0
@@ -794,8 +842,8 @@ def phase_train(fail, workdir):
     # gradients pass through train-mode BN's near-cancelling backward, where
     # an f32 step (CPU or GPU) sits several 1e-3 from the exact one, so two
     # f32 steps can differ by the whole bar.
-    m_gpu, g_gpu, s_gpu = train_step_on("cuda", small)
-    m_ref, g_ref, s_ref = train_step_on("cpu", small, torch.float64)
+    m_gpu, g_gpu, s_gpu, *_ = train_step_on("cuda", small)
+    m_ref, g_ref, s_ref, *_ = train_step_on("cpu", small, torch.float64)
     loss_ok = all(abs(m_gpu[k] - v) <= 1e-5 + 1e-5 * abs(v) for k, v in m_ref.items())
     worst_loss = max(abs(m_gpu[k] - v) for k, v in m_ref.items())
     leaf, rel = worst_grad_leaf(g_gpu, g_ref)
@@ -811,7 +859,19 @@ def phase_train(fail, workdir):
         bn_max_abs_err=bn_err, bn_bar=1e-5, loss=m_gpu["loss"], loss_ref=m_ref["loss"]))
     epoch = {"epoch_seconds": tm.train_seconds,
              "trainer_imgs_per_s": TRAIN_STEPS * TRAIN_BATCH / tm.train_seconds}
-    return launches, host, epoch
+    return launches, host, epoch, run
+
+
+def trainer_for(run, args, batches=TRAIN_STEPS):
+    """A TrainManager over `batches` training batches of the run's data (the
+    synthetic tree's split root of that size, or in-memory samples), as
+    main.main builds it; its train() is main.main's training run."""
+    if run["real"]:
+        return TrainManager(Options().parse(run["argv"] + args
+                                            + ["--split_root", run["splits"][batches]]))
+    cls = type(f"InMemoryTrainManager{batches}", (InMemoryTrainManager,),
+               {"train_batches": batches})
+    return cls(Options().parse(run["argv"] + args))
 
 
 def train_kernel_category(name):
@@ -924,15 +984,92 @@ def site_backward(fail, batch):
     return rows
 
 
+def decoder_conv_calls():
+    """Every conv of both models' decoders at 192x640 that cuDNN runs (all
+    but the fused kernel's sites), recorded at aten.convolution in one
+    batch-1 forward of each decoder on the card: {(input per image, as
+    passed, padded: [C,H,W]; weight shape; bias?; stride; padding;
+    channels_last?): the models that call it}."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = {}
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.convolution.default:
+                x, w, b, stride, padding = args[:5]
+                cl = (x.is_contiguous(memory_format=torch.channels_last)
+                      and not x.is_contiguous())
+                key = (tuple(x.shape[1:]), tuple(w.shape), b is not None, tuple(stride),
+                       tuple(padding), cl)
+                calls.setdefault(key, []).append(model)
+            return func(*args, **(kwargs or {}))
+
+    g = torch.Generator().manual_seed(SEED)
+    nets = {"FootprintNetwork-34": FootprintNetwork(34, device="cuda", generator=g),
+            "Segmentor-34 PSP": Segmentor(34, True, device="cuda", generator=g)}
+    x = torch.rand(1, 3, HEIGHT, WIDTH, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    for model, net in nets.items():
+        with torch.no_grad():
+            features = net.encoder(x)
+            with Record():
+                if model.startswith("Footprint"):
+                    net.mask_decoder(features)
+                    net.depth_decoder(features)
+                else:
+                    net.decoder(features)
+    return calls
+
+
 def cudnn_batch_probe(batches=(4, 8, 12, 16)):
-    """cuDNN's f32 time (TF32 off, default heuristics) for the decoder's
-    block2 post-concat conv1, reflect-padded [N,256,26,82] * [128,256,3,3]
-    as the model calls it, at each batch size N: ms per call, mean of 5."""
+    """cuDNN's f32 time (TF32 off) per call, mean of 5 after 2: the
+    decoder's block2 post-concat conv1, reflect-padded [N,256,26,82] *
+    [128,256,3,3] in NCHW (the first probe's form) at each batch N; then every conv
+    of both decoders that cuDNN runs, in the memory format and with the
+    bias the model passes, at each batch, with the default heuristics and
+    with torch.backends.cudnn.benchmark on (restored after).  A shape is on
+    a cliff at a batch where its time per image exceeds 4x its least time
+    per image over the batches (and 1 ms per call)."""
     out = {}
     w = torch.randn(128, 256, 3, 3, device="cuda") * 0.02
     for n in batches:
         x = torch.randn(n, 256, 26, 82, device="cuda")
         out[f"batch_{n}_ms"] = time_ms(lambda: F.conv2d(x, w), iters=5, warmup=2)
+    del x, w
+    rows = []
+    prior = torch.backends.cudnn.benchmark
+    try:
+        for (shape, wshape, bias, stride, padding, cl), models in decoder_conv_calls().items():
+            row = {"input": list(shape), "weight": list(wshape), "stride": list(stride),
+                   "padding": list(padding), "channels_last": cl,
+                   "calls_per_forward": {m: models.count(m) for m in sorted(set(models))}}
+            w = torch.randn(wshape, device="cuda") * 0.02
+            b = torch.randn(wshape[0], device="cuda") if bias else None
+            for mode in (False, True):
+                torch.backends.cudnn.benchmark = mode
+                times = {}
+                for n in batches:
+                    x = torch.randn(n, *shape, device="cuda")
+                    if cl:
+                        x = x.contiguous(memory_format=torch.channels_last)
+                    times[n] = time_ms(lambda: F.conv2d(x, w, b, stride, padding),
+                                       iters=5, warmup=2)
+                    del x
+                least = min(t / n for n, t in times.items())
+                key = "benchmark" if mode else "default"
+                row[f"{key}_ms"] = times
+                row[f"{key}_cliff_batches"] = [n for n, t in times.items()
+                                               if t / n > 4 * least and t > 1.0]
+            rows.append(row)
+    finally:
+        torch.backends.cudnn.benchmark = prior
+    out["decoder_convs"] = rows
+    out["cliffs_default"] = [[r["input"], r["weight"], r["default_cliff_batches"]]
+                             for r in rows if r["default_cliff_batches"]]
+    out["cliffs_benchmark"] = [[r["input"], r["weight"], r["benchmark_cliff_batches"]]
+                               for r in rows if r["benchmark_cliff_batches"]]
+    out["benchmark_flag_restored"] = torch.backends.cudnn.benchmark == prior
     return out
 
 
@@ -1012,7 +1149,281 @@ def phase_train_times(fail, host, epoch):
          forward_ms_per_step=2 * sum(r["forward_ms"] for r in site_rows),
          backward_ms_per_step=2 * sum(r["backward_ms"] for r in site_rows))
     emit("train_times", profile=summary, top=rows[:12], top_ops=ops[:8])
-    emit("train_times", cudnn_probe=cudnn_batch_probe())
+    probe = cudnn_batch_probe()
+    fail.check(probe["benchmark_flag_restored"] and len(probe["decoder_convs"]) > 0,
+               "train_times: the cuDNN probe found no decoder conv or left the "
+               "benchmark flag changed")
+    os.makedirs(os.path.join(REPO, "smoke_out"), exist_ok=True)
+    with open(os.path.join(REPO, "smoke_out", "cudnn_probe.json"), "w") as f:
+        json.dump(probe, f, indent=1)
+    emit("train_times", cudnn_probe={k: v for k, v in probe.items() if k != "decoder_convs"},
+         cudnn_probe_table="smoke_out/cudnn_probe.json")
+    for r in probe["decoder_convs"]:
+        emit("train_times", cudnn_conv=r)
+
+
+# --- bf16 training of the FootprintNetwork ----------------------------------------
+
+def card_batch_packs(fail, tm):
+    """The packed '@s2d'/'@s2d2' targets on a batch the trainer decodes onto
+    the card (its _put: the prefetcher's decode): {key: shape}."""
+    batch = tm._put(next(iter(tm.val_loader)))
+    packs = {k: list(v.shape) for k, v in batch.items() if "@s2d" in k}
+    want = {f"{k}{suffix}": [TRAIN_BATCH, HEIGHT // s, WIDTH // s, s * s]
+            for k in TARGET_KEYS for suffix, s in (("@s2d", 2), ("@s2d2", 4))}
+    fail.check(packs == want and all(v.is_cuda for v in batch.values()),
+               f"train_bf16: packed targets on the card batch {packs}, expected {want}")
+    return packs
+
+
+def phase_train_bf16(fail, run, workdir):
+    """main --mode train --compute_dtype bfloat16 (heads 'auto': both on) on
+    phase 7's data: 4 steps, the step-0 validation, the checkpoint and a
+    resume; then the check steps and --pretrained_encoder.  Returns the
+    kernel's launches on the main paths driven here."""
+    args = ["--compute_dtype", "bfloat16", "--model_name", "smoke_bf16"]
+    # the main path: counts set to 0 just before, read just after
+    fused_conv3x3.launches = fused_conv3x3.bf16_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    if run["real"]:
+        tm = port_main.main(run["argv"] + args)
+    else:
+        tm = trainer_for(run, args)
+        tm.train()
+    torch.cuda.synchronize()
+    launches, bf16 = fused_conv3x3.launches, fused_conv3x3.bf16_launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_val = sum(1 for mode, _, _ in tm.logged if mode == "val")
+    expected = LAUNCHES_PER_FORWARD * (TRAIN_STEPS + VAL_BATCHES * n_val)
+    fail.check(n_val == 1 and launches == bf16 == expected,
+               f"train_bf16: {launches} kernel launches ({bf16} bf16), expected {expected}, "
+               f"all bf16 (10 per training forward, 10 per validation forward; "
+               f"{n_val} validation events)")
+    heads = (tm.step_config.s2d_head, tm.step_config.p4_head)
+    fail.check(heads == (True, True), f"train_bf16: heads {heads} under 'auto', expected on")
+    rest = tm.evaluator.get_averaged_losses("train")
+    fail.check(tm.step == TRAIN_STEPS and len(tm.logged) == 2 and finite_losses(rest)
+               and all(finite_losses(losses) and len(losses) == 21
+                       for _, _, losses in tm.logged),
+               f"train_bf16: step {tm.step}, logged {tm.logged}, later steps {rest}")
+    masters = {p.dtype for p in tm.model_manager.net.parameters()}
+    fail.check(masters == {torch.float32}, f"train_bf16: master params in {masters}")
+    weights = os.path.join(workdir, "train_logs", "smoke_bf16", "models", "weights_0")
+    ckpt = os.path.join(weights, "checkpoint.npz")
+    ok = os.path.exists(ckpt)
+    if ok:
+        loaded = load_checkpoint(ckpt)
+        ok = (int(loaded["step"]) == TRAIN_STEPS == int(loaded["opt_state"][0][0])
+              and all(a.dtype in (np.float32, np.int32) and np.isfinite(a).all()
+                      for a in tree_arrays(loaded)))
+    fail.check(ok, f"train_bf16: {ckpt} missing, not at step {TRAIN_STEPS}, or not f32")
+    packs = card_batch_packs(fail, tm)
+
+    tm2 = trainer_for(run, args + ["--load_path", weights])
+    (count, mu, nu), _ = tm.model_manager.train_state()["opt_state"]
+    (count2, mu2, nu2), _ = tm2.model_manager.train_state()["opt_state"]
+    fail.check(tm2.step == TRAIN_STEPS and int(count2) == int(count) == TRAIN_STEPS
+               and np.array_equal(mu, mu2) and np.array_equal(nu, nu2),
+               f"train_bf16: resume gave step {tm2.step}, Adam count {int(count2)}")
+    for m in (tm, tm2):
+        m.val_iter.close()
+    emit("train_bf16", route=run["route"], steps=tm.step, batch=TRAIN_BATCH,
+         shape=[HEIGHT, WIDTH], depth=34, compute_dtype="bfloat16", heads="auto (on)",
+         launches=launches, bf16_launches=bf16, launches_expected=expected,
+         logged=[[m, s_, losses["loss"]] for m, s_, losses in tm.logged],
+         checkpoint=os.path.relpath(ckpt, workdir), resumed_step=tm2.step,
+         packed_targets_on_card=packs, peak_memory_gib=peak_gib,
+         epoch_seconds_with_first_batch_and_validation=tm.train_seconds)
+    train_check_steps(fail)
+    return launches + phase_pretrained(fail, run, workdir)
+
+
+def train_check_steps(fail):
+    """At batch 2 on a seeded noise batch, from the seeded weights: the GPU
+    bf16 step (both heads) against an f64 CPU step, no farther from it than
+    twice a CPU bf16 step's distance (the same code on the CPU, held
+    against the JAX package by tests/test_torch_bf16_train.py), for the
+    whole gradient and each leaf plus 1e-3; and the GPU f32 step with both
+    heads against the one without: loss terms within 1e-6 relative, the
+    whole gradient ||d||/||ref|| < 1e-5, beside the same heads-off step run
+    twice (cuDNN's own run-to-run spread).  Printed beside them: the worst
+    leaves and the count of mask logits that are exactly 0."""
+    small = collate([InMemorySamples(CHECK_BATCH, CHECK_SEED)[i] for i in range(CHECK_BATCH)])
+    runs = {"gpu_bf16": ("cuda", torch.float32, "bfloat16", True),
+            "cpu_bf16": ("cpu", torch.float32, "bfloat16", True),
+            "cpu_f64": ("cpu", torch.float64, "float32", True),
+            "gpu_f32_heads": ("cuda", torch.float32, "float32", True),
+            "gpu_f32": ("cuda", torch.float32, "float32", False),
+            "gpu_f32_again": ("cuda", torch.float32, "float32", False)}
+    steps, seconds = {}, {}
+    for name, (device, dtype, compute, heads) in runs.items():
+        t0 = time.perf_counter()
+        steps[name] = train_step_on(device, small, dtype, compute, heads)
+        seconds[name] = time.perf_counter() - t0
+    m16, g16, _, dtypes16, _ = steps["gpu_bf16"]
+    g_cpu16, g_ref = steps["cpu_bf16"][1], steps["cpu_f64"][1]
+    fail.check(finite_losses(m16) and dtypes16 == {torch.float32}
+               and g16.keys() == g_ref.keys() == g_cpu16.keys(),
+               f"train_bf16: bf16 check step losses {m16}, masters and grads in {dtypes16}")
+    whole = {"gpu_bf16": whole_rel(g16, g_ref), "cpu_bf16": whole_rel(g_cpu16, g_ref)}
+    fail.check(whole["gpu_bf16"] <= 2 * whole["cpu_bf16"],
+               f"train_bf16: the GPU bf16 gradient sits {whole['gpu_bf16']} from the f64 "
+               f"step, the CPU bf16 one {whole['cpu_bf16']}")
+    leaf_gap = {}  # leaf: (GPU bf16 to f64, CPU bf16 to f64)
+    for k, v in g_ref.items():
+        norm = float(v.norm().clamp_min(1e-30))
+        leaf_gap[k] = (float((g16[k] - v).norm()) / norm, float((g_cpu16[k] - v).norm()) / norm)
+    over = {k: d for k, d in leaf_gap.items() if d[0] > 2 * d[1] + 1e-3}
+    fail.check(not over, f"train_bf16: GPU bf16 gradient leaves farther from the f64 step "
+                         f"than twice the CPU bf16 step's, plus 1e-3: {over}")
+    worst_ratio = max(leaf_gap, key=lambda k: leaf_gap[k][0] / max(leaf_gap[k][1], 1e-30))
+    least_margin = min(leaf_gap, key=lambda k: 2 * leaf_gap[k][1] + 1e-3 - leaf_gap[k][0])
+
+    (m_on, g_on, *_), (m_off, g_off, *_) = steps["gpu_f32_heads"], steps["gpu_f32"]
+    loss_rel = max(abs(m_on[k] - v) / max(abs(v), 1e-30) for k, v in m_off.items())
+    heads_rel = whole_rel(g_on, g_off)
+    repeat_rel = whole_rel(steps["gpu_f32_again"][1], g_off)
+    fail.check(m_on.keys() == m_off.keys() and loss_rel <= 1e-6 and heads_rel < 1e-5,
+               f"train_bf16: the f32 step with the packed heads vs without: loss terms "
+               f"{loss_rel} relative (bar 1e-6), gradient {heads_rel} (bar 1e-5)")
+    emit("train_bf16", check_steps=dict(
+        batch=CHECK_BATCH, shape=[HEIGHT, WIDTH], input=f"noise, seed {CHECK_SEED}",
+        bf16_reference="CPU, f64, both heads", whole_grad_rel_to_f64=whole,
+        whole_bar="2 x CPU bf16's", leaf_bar="2 x CPU bf16's + 1e-3",
+        worst_leaf_ratio=[worst_ratio, *leaf_gap[worst_ratio]],
+        least_leaf_margin=[least_margin, *leaf_gap[least_margin]],
+        worst_gpu_bf16_leaf=worst_grad_leaf(g16, g_ref),
+        loss_bf16_vs_f32_max_abs=max(abs(m16[k] - v) for k, v in m_off.items()),
+        zero_mask_logits={k: v[4] for k, v in steps.items()},
+        heads_on_vs_off_f32={"loss_max_rel": loss_rel, "loss_bar": 1e-6,
+                             "whole_grad_rel": heads_rel, "grad_bar": 1e-5,
+                             "worst_leaf": worst_grad_leaf(g_on, g_off),
+                             "same_step_twice_whole_grad_rel": repeat_rel}),
+        seconds=seconds)
+
+
+def write_torchvision_resnet34(path, seed):
+    """A seeded ResNet-34 state_dict in torchvision's layout (conv1, bn1,
+    layer1..4, fc), saved to `path`.  Returns {the port's encoder key: the
+    file's tensor} for its float tensors."""
+    with torch.device("meta"):
+        like = resnet.ResnetEncoder(34).state_dict()
+    rng = np.random.RandomState(seed)
+    sd, port = {}, {}
+    for k, v in like.items():
+        tv = (k.replace("layer0.0.", "conv1.", 1).replace("layer0.1.", "bn1.", 1)
+              .replace("layer1.1.", "layer1.", 1))
+        if k.endswith("num_batches_tracked"):
+            sd[tv] = torch.tensor(0)
+            continue
+        a = rng.randn(*v.shape).astype(np.float32) * 0.05
+        sd[tv] = port["encoder." + k] = torch.from_numpy(
+            np.abs(a) + 0.5 if k.endswith("running_var") else a)
+    sd["fc.weight"] = torch.from_numpy(rng.randn(1000, 512).astype(np.float32) * 0.01)
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return port
+
+
+def phase_pretrained(fail, run, workdir):
+    """--pretrained_encoder: a synthetic torchvision-layout ResNet-34 .pth;
+    one bf16 step from it through the trainer main.main builds.  Checks the
+    step-0 encoder equals the file's weights exactly (and BN statistics),
+    10 launches for the step and 10 for its validation.  Returns them."""
+    path = os.path.join(workdir, "resnet34_torchvision.pth")
+    want = write_torchvision_resnet34(path, SEED)
+    tm = trainer_for(run, ["--compute_dtype", "bfloat16", "--model_name", "smoke_pretrained",
+                           "--pretrained_encoder", path], batches=1)
+    sd = tm.model_manager.net.state_dict()
+    exact = all(torch.equal(sd[k].cpu(), v) for k, v in want.items())
+    # the main path: counts set to 0 just before, read just after
+    fused_conv3x3.launches = fused_conv3x3.bf16_launches = 0
+    tm.train()
+    torch.cuda.synchronize()
+    launches = fused_conv3x3.launches
+    expected = LAUNCHES_PER_FORWARD * (1 + VAL_BATCHES)
+    fail.check(exact and len(want) > 0,
+               f"train_bf16: the step-0 encoder differs from {path}'s weights")
+    fail.check(tm.step == 1 and launches == fused_conv3x3.bf16_launches == expected
+               and all(finite_losses(losses) for _, _, losses in tm.logged),
+               f"train_bf16: pretrained run at step {tm.step}, {launches} launches "
+               f"(expected {expected}), logged {tm.logged}")
+    tm.val_iter.close()
+    emit("train_bf16", pretrained_encoder=dict(
+        file="synthetic torchvision-layout ResNet-34 state_dict (fc included)",
+        tensors_checked=len(want), step0_encoder_equals_file=exact, steps=tm.step,
+        launches=launches, launches_expected=expected,
+        logged=[[m, s_, losses["loss"]] for m, s_, losses in tm.logged]))
+    return launches
+
+
+def footprint_step_times(fail, host, compute, heads):
+    """The FootprintNetwork-34 train step alone on a batch on the card (the
+    packed targets made as the trainer's decode makes them): ms (mean of 10
+    after 3), imgs/s, peak memory, the forward+loss / backward / Adam split
+    (CUDA events, mean of 5) and one profiled step's busy time (the union
+    of its device intervals) over its wall time."""
+    batch = len(host["image"])
+    mm = ModelManager(device="cuda", seed=SEED, steps_per_epoch=TRAIN_STEPS)
+    config = TrainStepConfig(steps_per_epoch=TRAIN_STEPS, compute_dtype=compute,
+                             s2d_head=heads, p4_head=heads)
+    step = build_train_step(mm.net, mm.optimizer, config)
+    keys = TARGET_KEYS if heads else ()
+    b = decompact_on_device({k: torch.from_numpy(v).cuda() for k, v in host.items()},
+                            None, keys, keys)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: step(0, b), iters=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = {"forward_loss_ms": 0.0, "backward_ms": 0.0, "adam_ms": 0.0}
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        losses = compute_losses(forward_in(mm.net, b["image"], config.dtype, config.heads),
+                                b, config.loss)
+        ev[1].record()
+        mm.optimizer.zero_grad(set_to_none=True)
+        losses["loss"].backward()
+        ev[2].record()
+        mm.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, key in enumerate(split):
+            split[key] += ev[i].elapsed_time(ev[i + 1]) / 5
+    wall_ms, raw = profiled(lambda: step(0, b))
+    busy = span_summary(device_spans(raw))
+    fail.check(busy["ms_union"] > 0, f"train_bf16_times {compute} b{batch}: no device time")
+    return {"step_ms": ms, "imgs_per_s": batch / (ms * 1e-3), "peak_memory_gib": peak,
+            **split, "profiled_wall_ms": wall_ms, "busy_ms_union": busy["ms_union"],
+            "busy_share_of_profiled_wall": busy["ms_union"] / wall_ms,
+            "device_kernels": len(device_spans(raw))}
+
+
+def phase_train_bf16_times(fail, host, run):
+    """The bf16 step alone at batch 12 and 16, heads on and off, and the f32
+    step at batch 12 beside them; then the trainer with its loader (its own
+    epoch loop; bf16, heads 'auto') over 16 batches of 12 after an untimed
+    first batch."""
+    rows = {}
+    host16 = {k: np.concatenate([v, v[:4]]) for k, v in host.items()}
+    # heads on and off in turns (on, off, off, on): the step is host-bound,
+    # and its time drifts between measurements
+    for compute, heads, batch in (("bfloat16", True, 12), ("bfloat16", False, 12),
+                                  ("bfloat16", False, 12), ("bfloat16", True, 12),
+                                  ("bfloat16", True, 16), ("bfloat16", False, 16),
+                                  ("bfloat16", False, 16), ("bfloat16", True, 16),
+                                  ("float32", False, 12)):
+        name = f"{compute}_{'heads' if heads else 'no_heads'}_b{batch}"
+        rows.setdefault(name, []).append(
+            footprint_step_times(fail, host if batch == 12 else host16, compute, heads))
+        torch.cuda.empty_cache()
+    trainer = trainer_for(run, ["--compute_dtype", "bfloat16", "--model_name", "smoke_timed"],
+                          batches=TRAIN_TIMED_BATCHES + 1)
+    rate = steady_epoch_rate(fail, trainer, trainer.model_manager, LAUNCHES_PER_FORWARD)
+    loader_alone = loader_rate(trainer.train_loader)
+    emit("train_bf16_times", model="FootprintNetwork-34, 192x640", steps=rows,
+         trainer_imgs_per_s_with_loader_bf16=rate, loader_alone_imgs_per_s=loader_alone,
+         timed_batches=TRAIN_TIMED_BATCHES, timed_frames=TRAIN_TIMED_BATCHES * TRAIN_BATCH)
 
 
 # --- the batch dumps ------------------------------------------------------------
@@ -1880,12 +2291,13 @@ def site_backward_bf16(fail, batch):
     return rows
 
 
-def steady_epoch_rate(fail, trainer):
+def steady_epoch_rate(fail, trainer, saver=None, launches_per_batch=SEG_LAUNCHES_PER_FORWARD):
     """imgs/s of trainer.train() from the end of its first step (its
     loading, cuDNN's first calls) to the end of its last: the loader,
-    compaction, prefetcher and step of the Trainer's own loop.  The trainer
+    compaction, prefetcher and step of the trainer's own loop.  The trainer
     starts at step 1, past step 0's log event and validation, and the
-    epoch's checkpoint is replaced by the closing stamp."""
+    epoch's checkpoint (the save_model of `saver`, the trainer unless
+    given) is replaced by the closing stamp."""
     stamps = []
 
     def stamp(*_, **__):
@@ -1900,15 +2312,16 @@ def steady_epoch_rate(fail, trainer):
             stamp()
         return metrics
 
-    trainer.train_step, trainer.save_model, trainer.step = train_step, stamp, 1
+    trainer.train_step, trainer.step = train_step, 1
+    (saver or trainer).save_model = stamp
     trainer.val_iter.close()
     fused_conv3x3.launches = 0
     trainer.train()
     n = len(trainer.train_loader)
     fail.check(len(stamps) == 2 and not trainer.logged
-               and fused_conv3x3.launches == SEG_LAUNCHES_PER_FORWARD * n,
-               f"seg_train_times: timed epoch of {n} batches logged {trainer.logged}, "
-               f"{fused_conv3x3.launches} launches")
+               and fused_conv3x3.launches == launches_per_batch * n,
+               f"{type(trainer).__name__}: timed epoch of {n} batches logged "
+               f"{trainer.logged}, {fused_conv3x3.launches} launches")
     return (n - 1) * trainer.opt.batch_size / (stamps[-1] - stamps[0])
 
 
@@ -1983,13 +2396,15 @@ def phase_seg_train_times(fail, host, timed_trainer):
          trainer_imgs_per_s_with_loader=trainer_rates, loader_alone_imgs_per_s=loader_alone,
          timed_batches=SEG_TIMED_BATCHES, timed_frames=SEG_TIMED_BATCHES * SEG_TRAIN_BATCH)
     site_rows = site_backward_bf16(fail, SEG_TRAIN_BATCH)
+    per_step = {"forward_ms_per_step": sum(r["forward_ms"] for r in site_rows),
+                "backward_ms_per_step": sum(r["backward_ms"] for r in site_rows)}
     emit("seg_train_times", kernel=KERNEL["name"], route=ROUTES[torch.bfloat16],
          batch=SEG_TRAIN_BATCH, sites=site_rows,
          reference="autograd of the f32 plain version, same bf16-rounded tensors",
          bars={"y": "2e-2 + 2e-2|ref|",
                "x, w, b, residual": "2e-2 max|ref| + 2e-2|ref|, ||d||/||ref|| < 2e-2"},
-         forward_ms_per_step=sum(r["forward_ms"] for r in site_rows),
-         backward_ms_per_step=sum(r["backward_ms"] for r in site_rows))
+         **per_step)
+    return per_step
 
 
 def main():
@@ -2027,15 +2442,25 @@ def main():
     timed("profile", phase_profile, net)
     del net
     with tempfile.TemporaryDirectory() as workdir:
-        train_launches, host, epoch = timed("train", phase_train, fail, workdir)
-    timed("train_times", phase_train_times, fail, host, epoch)
+        train_launches, host, epoch, run = timed("train", phase_train, fail, workdir)
+        timed("train_times", phase_train_times, fail, host, epoch)
+        train_launches += timed("train_bf16", phase_train_bf16, fail, run, workdir)
+        timed("train_bf16_times", phase_train_bf16_times, fail, host, run)
     with tempfile.TemporaryDirectory() as workdir:
         dump_launches = timed("dump", phase_dump, fail, workdir)
         seg_launches = timed("seg_dump", phase_seg_dump, fail, workdir)
     with tempfile.TemporaryDirectory() as workdir:
         seg_train_launches, seg_host, timed_trainer = timed(
             "seg_train", phase_seg_train, fail, workdir)
-        timed("seg_train_times", phase_seg_train_times, fail, seg_host, timed_trainer)
+        bf16_sites = timed("seg_train_times", phase_seg_train_times, fail, seg_host,
+                           timed_trainer)
+    # the FootprintNetwork's bf16 training runs the same 5 site shapes in
+    # each of its 2 decoders
+    emit("train_bf16_times", kernel=KERNEL["name"], route=ROUTES[torch.bfloat16],
+         batch=TRAIN_BATCH, launches_per_step_forward=LAUNCHES_PER_FORWARD,
+         forward_ms_per_step=2 * bf16_sites["forward_ms_per_step"],
+         backward_ms_per_step=2 * bf16_sites["backward_ms_per_step"],
+         source="phase seg_train_times' per-site bf16 times at batch 12, x2 decoders")
     launches += train_launches + dump_launches + seg_launches + seg_train_launches
     emit("seconds", **seconds)
 

@@ -1,8 +1,9 @@
 """footprints_tpu_torch — the PyTorch/CUDA port of footprints_tpu.
 
 The port serves and trains the FootprintNetwork (ResNet encoder + mask and
-depth SkipDecoders), dumps test splits and scores them, and runs the
-Segmentor's ground_seg dump, on an NVIDIA H100.  It mirrors the JAX
+depth SkipDecoders; f32, or bf16 mixed precision with the packed heads),
+dumps test splits and scores them, and trains the Segmentor and runs its
+ground_seg dump, on an NVIDIA H100.  It mirrors the JAX
 package's module names so each counterpart is easy to find, and it imports
 nothing of JAX or of ``footprints_tpu``: an H100 host runs it with PyTorch,
 numpy and scipy (the data paths also need Pillow, OpenCV and PyYAML,
@@ -21,8 +22,9 @@ Layout:
     train/       losses, train/eval steps, evaluator, logger, TrainManager
     eval/        the batch dump (InferenceManager) and the metric harness
     preprocessing/segmentation/  the ground_seg dump (Tester, CLI)
-    convert.py   JAX params/state pytrees <-> the port's state_dict (both
-                 models), and the JAX flat order of Adam's moments
+    convert/     JAX params/state pytrees <-> the port's state_dict (both
+                 models), the JAX flat order of Adam's moments, the
+                 --pretrained_encoder reader and the .pth -> npz CLI
     checkpoint.py  writer and reader of the JAX package's ``checkpoint.npz``
     model_manager.py  network, optimizer, save and load
     predict_simple.py  the one-shot prediction CLI

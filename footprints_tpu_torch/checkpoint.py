@@ -6,7 +6,7 @@ Keys are '/'-joined pytree paths; list indices are plain path segments
 beside a ``<path>/__list__`` (or ``__tuple__``) length entry; ``None`` leaves
 are listed in ``__none_keys__``; empty dicts are ``<path>/__empty_dict__``.
 The pytree is ``{params, state, opt_state, step}`` in the JAX layout
-(convert.py builds it from the port's modules and optimizer).
+(convert/bridge.py builds it from the port's modules and optimizer).
 """
 
 import os

@@ -30,8 +30,8 @@ accepts; this module imports no JAX.
 import numpy as np
 import torch
 
-from .models.segmentor import PSP_POOL_SIZES
-from .nn.resnet import ARCHS
+from ..models.segmentor import PSP_POOL_SIZES
+from ..nn.resnet import ARCHS
 
 
 def _tensor(a):

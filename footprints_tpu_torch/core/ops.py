@@ -31,3 +31,37 @@ def np_pixel_disp_to_depth(disp, focal_length: float, baseline: float):
     depth = focal_length * baseline / safe
     depth[depth < 0] = 0
     return depth
+
+
+def s2d_pack(x):
+    """[N,H,W,C] -> [N,H/2,W/2,4C], channel-major space-to-depth: lane
+    ``4c + 2a + b`` holds ``x[:, 2i + a, 2j + b, c]`` (torch's
+    ``pixel_unshuffle(2)`` order).  The layout of the packed '1/1_s2d'
+    training head and its '@s2d' targets (footprints_tpu/train/losses.py:
+    s2d_map, per channel)."""
+    n, h, w, c = x.shape
+    return x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 5, 2, 4).reshape(
+        n, h // 2, w // 2, 4 * c)
+
+
+def p4_pack(x):
+    """[N,H,W,C] -> [N,H/4,W/4,16C], the period-4 pack: lane
+    ``16c + 4(2a + b) + (2alpha + beta)`` holds
+    ``x[:, 4i + 2alpha + a, 4j + 2beta + b, c]``.  The low phase bits form
+    the outer lane group, so this is not ``pixel_unshuffle(4)``'s order.
+    The layout of the packed '1/2_s2d2' training head and its '@s2d2'
+    targets (footprints_tpu/train/losses.py:p4_map, per channel)."""
+    n, h, w, c = x.shape
+    return x.reshape(n, h // 4, 2, 2, w // 4, 2, 2, c).permute(
+        0, 1, 4, 7, 3, 6, 2, 5).reshape(n, h // 4, w // 4, 16 * c)
+
+
+def s2d_map(t):
+    """[N,H,W] target map -> [N,H/2,W/2,4], phase (a, b) at lane 2a + b."""
+    return s2d_pack(t[..., None])
+
+
+def p4_map(t):
+    """[N,H,W] target map -> [N,H/4,W/4,16], the period-4 pack (lane
+    4(2a + b) + (2alpha + beta) holds row 4i + 2alpha + a)."""
+    return p4_pack(t[..., None])

@@ -21,6 +21,8 @@ transport decodes bitwise equal to raw f32 transport.
 import numpy as np
 import torch
 
+from ..core.ops import p4_map, s2d_map
+
 # strided-subsample stride: a prime so the sample never aligns with image
 # row/channel periodicities; samples ~0.4% of elements per batch
 SPOT_STRIDE = 251
@@ -218,13 +220,10 @@ def decompact_on_device(batch, scheme=None, s2d_keys=(), p4_keys=()):
     decode follows the locked encodings, so keys the compactor passed
     through keep their dtypes; without it, it infers them from dtypes.
 
-    ``s2d_keys``/``p4_keys`` (the packed '@s2d'/'@s2d2' targets of the
-    packed training heads) are not ported yet and raise."""
-    if s2d_keys or p4_keys:
-        raise NotImplementedError(
-            "packed '@s2d'/'@s2d2' targets arrive with the packed training "
-            "heads (s2d_head/p4_head) of the bf16 mixed-precision training "
-            "slice, which is not ported yet")
+    ``s2d_keys``: decoded [N,H,W] maps to also emit packed as '<key>@s2d'
+    [N,H/2,W/2,4]; ``p4_keys`` likewise as '<key>@s2d2' [N,H/4,W/4,16]:
+    the targets of the packed training heads (train/losses.py), packed
+    here on the put path rather than in the step."""
     out = {}
     lut = None
     for key, val in batch.items():
@@ -240,4 +239,8 @@ def decompact_on_device(batch, scheme=None, s2d_keys=(), p4_keys=()):
             out[key] = val.float()
         else:
             out[key] = val
+    for keys, suffix, pack in ((s2d_keys, "@s2d", s2d_map), (p4_keys, "@s2d2", p4_map)):
+        for key in keys:
+            if key in out:
+                out[key + suffix] = pack(out[key])
     return out

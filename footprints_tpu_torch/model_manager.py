@@ -13,7 +13,7 @@ Two checkpoint formats load from a weights directory:
 The optimizer state travels in optax's layout: ``((count, mu, nu),
 (count,))``, the ``ScaleByAdamState`` of ``optax.flatten(optax.adam)`` and
 its ``ScaleByScheduleState``, with ``mu``/``nu`` one flat f32 vector each in
-``ravel_pytree`` order (convert.py).
+``ravel_pytree`` order (convert/bridge.py).
 """
 
 import os
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .checkpoint import load_checkpoint, save_checkpoint
-from .convert import (flat_from_named, jax_params_from_state_dict,
+from .convert import (flat_from_named, init_encoder_from, jax_params_from_state_dict,
                       named_from_flat, state_dict_from_jax_params)
 from .models import FootprintNetwork
 from .train.step import TrainStepConfig, make_optimizer
@@ -35,16 +35,17 @@ class ModelManager:
     def __init__(self, save_folder=None, is_inference=False, learning_rate=1e-4,
                  lr_step_size=10, steps_per_epoch=1, depth=34, seed=10,
                  pretrained_encoder=None, device="cuda"):
-        if pretrained_encoder is not None:
-            raise NotImplementedError(
-                "--pretrained_encoder is not ported yet; it arrives with the "
-                "export and convert slice (the torchvision weight converter)")
         self.save_folder = save_folder
         self.device = select_device(device)
         self.depth = depth
         self.net = FootprintNetwork(
             depth, device=self.device,
             generator=torch.Generator().manual_seed(seed)).eval()
+        if pretrained_encoder is not None:
+            # the reference trains from an ImageNet-pretrained encoder; the
+            # decoders keep their seeded init
+            print(f"initializing encoder from {pretrained_encoder}...")
+            init_encoder_from(self.net, pretrained_encoder)
         self.step = 0
         self.config = TrainStepConfig(learning_rate=learning_rate,
                                       scheduler_step_epochs=lr_step_size,

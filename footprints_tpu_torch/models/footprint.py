@@ -13,11 +13,18 @@ of footprints_tpu/models/footprint.py).
 The public forward keeps the JAX layout: NHWC ``[N,H,W,3]`` in, NHWC
 ``[N,H,W,4]`` maps out.  Inside, tensors are NCHW views of channels_last
 memory, so both permutes are views.
+
+The packed training heads (``s2d_head``, ``p4_head``) keep the JAX
+package's layouts (footprints_tpu/models/footprint.py), which it computes
+in s2d form to spare the TPU lane-narrow relayouts.  The card has no such
+constraint, so here each is the standard head, then packed
+(core/ops.py): it unpacks to the standard head bit for bit.
 """
 
 import torch
 import torch.nn as nn
 
+from ..core.ops import p4_pack, s2d_pack
 from ..nn import init as nn_init
 from ..nn import resnet
 from ..nn.blocks import (ConvBlock, ConvUpsampleAndConcatBlock, OutConvBlock,
@@ -107,13 +114,28 @@ class FootprintNetwork(nn.Module):
         self.mask_decoder.reset_parameters(generator)
         self.depth_decoder.reset_parameters(generator)
 
-    def forward(self, image, scales=SCALES):
+    def forward(self, image, scales=SCALES, s2d_head=False, p4_head=False):
         """image: [N,H,W,3] in [0,1].  Returns {scale: [N,H,W,4]} with the
         ch0..ch3 contract above, for each scale in ``scales`` (serving asks
-        for '1/1' alone and skips the other heads)."""
+        for '1/1' alone and skips the other heads).
+
+        ``s2d_head`` replaces '1/1' by '1/1_s2d' [N,H/2,W/2,16], channel c's
+        4 phases at lanes 4c..4c+3; ``p4_head`` replaces '1/2' by
+        '1/2_s2d2' [N,H/4,W/4,64], channel c's 16 period-4 phases at lanes
+        16c..16c+15.  The training step scores them against packed targets
+        (train/losses.py)."""
         x = image.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         features = self.encoder(x)
         mask = self.mask_decoder(features, scales)
         depth = self.depth_decoder(features, scales)
-        return {k: torch.cat([mask[k], depth[k]], 1).permute(0, 2, 3, 1)
-                for k in mask}
+        packs = {"1/1": ("1/1_s2d", s2d_pack)} if s2d_head else {}
+        if p4_head:
+            packs["1/2"] = ("1/2_s2d2", p4_pack)
+        out = {}
+        for k in mask:
+            y = torch.cat([mask[k], depth[k]], 1).permute(0, 2, 3, 1)
+            if k in packs:
+                k, pack = packs[k]
+                y = pack(y)
+            out[k] = y
+        return out

@@ -55,7 +55,15 @@ def upsample_nearest(x, scale=2):
 
 
 def upsample_bilinear(x, scale):
-    """Bilinear upsample with half-pixel centres (align_corners=False)."""
+    """Bilinear upsample with half-pixel centres (align_corners=False).
+
+    A bf16 ``x`` is upsampled in f32 and rounded back to bf16: the same
+    values, but the backward then sums the up to (2 scale)^2 contributions
+    to each input pixel in f32.  CUDA's bf16 backward adds them with bf16
+    atomics, which put the gradient of the x8 head about 2% off."""
+    if x.dtype == torch.bfloat16:
+        return F.interpolate(x.float(), scale_factor=scale, mode="bilinear",
+                             align_corners=False).to(x.dtype)
     return F.interpolate(x, scale_factor=scale, mode="bilinear",
                          align_corners=False)
 

@@ -53,14 +53,15 @@ class Options:
                        default=34, help="ResNet encoder depth (checkpoint "
                                         "contract: 34)")
         p.add_argument("--pretrained_encoder", type=str, default=None,
-                       help="initialise the encoder from ImageNet weights "
-                            "(not ported yet)")
+                       help="initialise the encoder from a local .pth: "
+                            "torchvision's ResNet layout or the reference's "
+                            "wrapped encoder ('download' is not ported)")
         p.add_argument("--split_root", type=str, default="splits",
                        help="root directory of split txt files")
         p.add_argument("--compute_dtype", type=str, default="float32",
                        choices=["float32", "bfloat16"],
-                       help="forward/backward compute dtype (bfloat16 is "
-                            "not ported yet)")
+                       help="forward/backward compute dtype; bfloat16 = "
+                            "mixed precision (f32 master params, f32 loss)")
         p.add_argument("--host_batch_compact", type=str, default="exact",
                        choices=["none", "exact", "f16"],
                        help="host->device batch encoding (data/compact.py): "
@@ -70,12 +71,14 @@ class Options:
                             "= raw f32")
         p.add_argument("--s2d_head", type=str, default="auto",
                        choices=["auto", "on", "off"],
-                       help="packed '1/1' training head; 'auto' follows "
-                            "bfloat16 compute ('on' is not ported yet)")
+                       help="score the '1/1' scale in s2d layout against "
+                            "targets packed on the put path; 'auto' turns it "
+                            "on with bfloat16 compute")
         p.add_argument("--p4_head", type=str, default="auto",
                        choices=["auto", "on", "off"],
-                       help="packed '1/2' training head; 'auto' follows "
-                            "bfloat16 compute ('on' is not ported yet)")
+                       help="score the '1/2' scale in period-4 layout "
+                            "against targets packed on the put path; 'auto' "
+                            "turns it on with bfloat16 compute")
         p.add_argument("--debug_nans", action="store_true",
                        help="torch.autograd.set_detect_anomaly (debugging only)")
         p.add_argument("--profile_dir", type=str, default=None,

@@ -45,7 +45,9 @@ class Options:
         p.add_argument("--encoder_depth", type=int, choices=[18, 34, 50],
                        default=34)
         p.add_argument("--pretrained_encoder", type=str, default=None,
-                       help="ImageNet encoder init (not ported yet: raises)")
+                       help="initialise the encoder from a local .pth: "
+                            "torchvision's ResNet layout or the reference's "
+                            "wrapped encoder ('download' is not ported)")
         p.add_argument("--log_images", action="store_true",
                        help="log [image | gt | prediction] panels to "
                             "tensorboard at log cadence (needs matplotlib)")

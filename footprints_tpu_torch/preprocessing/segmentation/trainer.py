@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ...checkpoint import save_checkpoint
-from ...convert import segmentor_jax_params_from_state_dict
+from ...convert import init_encoder_from, segmentor_jax_params_from_state_dict
 from ...core.config import load_config, readlines
 from ...data.compact import BatchCompactor, decompact_on_device
 from ...data.loader import DataLoader, DevicePrefetcher
@@ -88,15 +88,15 @@ class Trainer:
         print("setting up...")
         self.opt = options
         self.device = select_device(getattr(options, "device", "cuda"))
-        if getattr(options, "pretrained_encoder", None) is not None:
-            raise NotImplementedError(
-                "--pretrained_encoder is not ported yet; it arrives with the "
-                "export and convert slice (the torchvision weight converter)")
         self.compute_dtype = resolve_compute_dtype(getattr(options, "compute_dtype", None))
 
         self.net = Segmentor(depth=getattr(self.opt, "encoder_depth", 34),
                              use_psp=not self.opt.no_PSP, device=self.device,
                              generator=torch.Generator().manual_seed(SEED))
+        pretrained = getattr(self.opt, "pretrained_encoder", None)
+        if pretrained is not None:
+            print(f"initializing encoder from {pretrained}...")
+            init_encoder_from(self.net, pretrained)
         if self.opt.load_path is not None:
             load_segmentor_weights(self.net, self.opt.load_path)
 

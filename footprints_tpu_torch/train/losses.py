@@ -12,15 +12,26 @@ Per scale, four terms on the 4-channel prediction [N,H,W,4]:
   ch3 hidden-ground depth: as ch2 against ``ground_depth``.
 
 Keys: '<term>/<scale>' and 'loss/<scale>' per scale; 'loss' is the sum over
-scales divided by their number.  Only the full-resolution form is ported:
-the packed '1/1_s2d' and '1/2_s2d2' heads are not.
+scales divided by their number.
+
+The packed training heads (models/footprint.py) arrive as '1/1_s2d'
+[N,H/2,W/2,16] and '1/2_s2d2' [N,H/4,W/4,64], contract channel c at lanes
+``width*c .. width*c + width - 1`` (width 4 and 16).  Each term is pixelwise
+and then averaged, so it is scored against the targets packed the same way:
+the batch's '<name>@s2d' / '<name>@s2d2' keys (data/compact.py), else packed
+here.  The same numbers up to the order of the sums; the keys stay
+'<term>/1/1' and '<term>/1/2'.
 """
 
 import dataclasses
 
 import torch
 
-from ..core.ops import sigmoid_to_depth
+from ..core.ops import p4_map, s2d_map, sigmoid_to_depth
+
+# the target maps of the loss, which the packed heads score packed
+TARGET_KEYS = ("visible_ground", "all_ground", "depth", "ground_depth",
+               "depth_mask", "moving_object_mask")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,30 +70,36 @@ def three_class_loss(logits, ground_target, depth_mask, moving_mask, prior_weigh
     return torch.mean(loss)
 
 
-def compute_losses(predictions, targets, config: LossConfig = LossConfig()):
-    """predictions: {scale: [N,H,W,4]}; targets: dict of [N,H,W] maps.
-    Returns the losses dict described in the module doc."""
-    valid_depth = (targets["depth"] > 0).float()
-    moving_mask = 1.0 - targets["moving_object_mask"]
-    valid_ground_depth = (targets["ground_depth"] > 0).float()
+# packed head key -> (standard scale key, target key suffix, lanes per
+# channel, the pack of a target map)
+PACKED_HEADS = {"1/1_s2d": ("1/1", "@s2d", 4, s2d_map),
+                "1/2_s2d2": ("1/2", "@s2d2", 16, p4_map)}
 
+
+def compute_losses(predictions, targets, config: LossConfig = LossConfig()):
+    """predictions: {scale: [N,H,W,4]}, or a packed head (module doc);
+    targets: dict of [N,H,W] maps, and optionally their packs.
+    Returns the losses dict described in the module doc."""
     losses = {}
     total = 0.0
     for scale_key, output in predictions.items():
-        if scale_key in ("1/1_s2d", "1/2_s2d2"):
-            raise NotImplementedError(
-                f"the packed {scale_key!r} head is not ported yet; it arrives "
-                "with the bf16 mixed-precision training slice")
         output = output.float()
-        l_vis = torch.mean(bce_with_logits(output[..., 0], targets["visible_ground"]))
-        l_all = three_class_loss(output[..., 1], targets["all_ground"],
-                                 targets["depth_mask"], moving_mask,
+        if scale_key in PACKED_HEADS:
+            scale_key, suffix, width, pack = PACKED_HEADS[scale_key]
+            t = {k: targets[k + suffix] if k + suffix in targets
+                 else pack(targets[k]) for k in TARGET_KEYS}
+            ch = [output[..., width * c:width * (c + 1)] for c in range(4)]
+        else:
+            t, ch = targets, output.unbind(-1)
+        l_vis = torch.mean(bce_with_logits(ch[0], t["visible_ground"]))
+        l_all = three_class_loss(ch[1], t["all_ground"], t["depth_mask"],
+                                 1.0 - t["moving_object_mask"],
                                  config.footprint_prior_weight)
-        pred_depth = sigmoid_to_depth(output[..., 2], config.min_depth, config.max_depth)
-        l_depth = supervised_depth_loss(pred_depth, targets["depth"], valid_depth)
-        pred_gdepth = sigmoid_to_depth(output[..., 3], config.min_depth, config.max_depth)
-        l_gdepth = supervised_depth_loss(pred_gdepth, targets["ground_depth"],
-                                         valid_ground_depth)
+        pred_depth = sigmoid_to_depth(ch[2], config.min_depth, config.max_depth)
+        l_depth = supervised_depth_loss(pred_depth, t["depth"], (t["depth"] > 0).float())
+        pred_gdepth = sigmoid_to_depth(ch[3], config.min_depth, config.max_depth)
+        l_gdepth = supervised_depth_loss(pred_gdepth, t["ground_depth"],
+                                         (t["ground_depth"] > 0).float())
 
         losses[f"visible_ground/{scale_key}"] = l_vis
         losses[f"all_ground/{scale_key}"] = l_all

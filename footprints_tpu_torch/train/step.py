@@ -2,7 +2,10 @@
 
 One train step is forward (train-mode BN), the 4-scale loss, backward and
 the optimizer update, on one device.  Loss scalars stay on the device; the
-trainer fetches them at its log cadence.
+trainer fetches them at its log cadence.  With ``compute_dtype`` bfloat16
+the forward runs on bf16 compute copies of the f32 masters
+(``forward_in``); the loss, the gradients of the masters and Adam's state
+stay f32.  The eval step runs in the same dtype and with the same heads.
 
 Optimizer contract (reference model_manager.py:27-28): Adam at lr 1e-4 with
 StepLR every 10 epochs, gamma 0.1, as a step schedule
@@ -29,18 +32,25 @@ class TrainStepConfig:
     scheduler_gamma: float = 0.1
     steps_per_epoch: int = 1  # converts the epoch-based StepLR to steps
     loss: LossConfig = LossConfig()
-    # None/'float32': full f32, TF32 off (reference parity)
+    # None/'float32': full f32, TF32 off (reference parity); 'bfloat16':
+    # mixed precision on f32 masters
     compute_dtype: str | None = None
+    # the packed '1/1_s2d' and '1/2_s2d2' heads (models/footprint.py),
+    # scored against packed targets (train/losses.py)
+    s2d_head: bool = False
+    p4_head: bool = False
 
     def __post_init__(self):
-        # the FootprintNetwork's bf16 step comes with its packed heads; the
-        # compute copy it will run on is forward_in below (the Segmentor's
-        # trainer uses it already)
-        if resolve_compute_dtype(self.compute_dtype) != torch.float32:
-            raise NotImplementedError(
-                "bfloat16 mixed-precision training of the FootprintNetwork is "
-                "not ported yet; it arrives with the bf16 mixed-precision "
-                "training slice (with the packed s2d/p4 heads)")
+        resolve_compute_dtype(self.compute_dtype)  # raises on an unknown name
+
+    @property
+    def dtype(self):
+        return resolve_compute_dtype(self.compute_dtype)
+
+    @property
+    def heads(self):
+        """The head flags as keyword arguments of FootprintNetwork.forward."""
+        return {"s2d_head": self.s2d_head, "p4_head": self.p4_head}
 
 
 def resolve_compute_dtype(name):
@@ -53,8 +63,8 @@ def resolve_compute_dtype(name):
     raise ValueError(f"compute_dtype={name!r} not supported; one of {_F32 + _MIXED}")
 
 
-def forward_in(net, image, dtype):
-    """``net(image)`` computed in ``dtype``.  float32 calls the net
+def forward_in(net, image, dtype, kwargs=None):
+    """``net(image, **kwargs)`` computed in ``dtype``.  float32 calls the net
     as it is.  bfloat16 is mixed precision with f32 master parameters: the
     forward runs on bf16 compute copies of every parameter (``p.to(bf16)``,
     through ``torch.func.functional_call``) and on the image cast to bf16,
@@ -62,11 +72,13 @@ def forward_in(net, image, dtype):
     (BN's running statistics) stay the module's f32 tensors, which
     train-mode BN updates in f32 (nn/layers.py:batch_norm).  No autocast:
     every op runs in its inputs' dtype, as in the JAX package's mixed step
-    (footprints_tpu/train/step.py, preprocessing/segmentation/trainer.py)."""
+    (footprints_tpu/train/step.py, preprocessing/segmentation/trainer.py).
+    ``kwargs`` (e.g. the head flags) go to the net's forward."""
+    kwargs = kwargs or {}
     if dtype == torch.float32:
-        return net(image)
+        return net(image, **kwargs)
     copies = {n: p.to(dtype) for n, p in net.named_parameters()}
-    return torch.func.functional_call(net, copies, (image.to(dtype),))
+    return torch.func.functional_call(net, copies, (image.to(dtype),), kwargs)
 
 
 def make_lr_schedule(config: TrainStepConfig):
@@ -94,17 +106,19 @@ def build_train_step(net, optimizer, config: TrainStepConfig):
     ``step`` is the count of updates so far (it picks the learning rate);
     the caller advances it.  ``batch``: {'image': [N,H,W,3], 'depth',
     'visible_ground', 'all_ground', 'ground_depth', 'depth_mask',
-    'moving_object_mask': [N,H,W]} on the net's device.  ``metrics`` holds
+    'moving_object_mask': [N,H,W]} on the net's device, f32, and with the
+    packed heads optionally their '@s2d'/'@s2d2' packs.  ``metrics`` holds
     the detached device loss scalars and 'lr' (a float).
     """
     schedule = make_lr_schedule(config)
+    dtype, heads = config.dtype, config.heads
 
     def step_fn(step, batch):
         lr = schedule(step)
         for group in optimizer.param_groups:
             group["lr"] = lr
         net.train()
-        outputs = net(batch["image"])
+        outputs = forward_in(net, batch["image"], dtype, heads)
         losses = compute_losses(outputs, batch, config.loss)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
@@ -117,12 +131,14 @@ def build_train_step(net, optimizer, config: TrainStepConfig):
 
 
 def build_eval_step(net, config: TrainStepConfig):
-    """Returns eval_fn(batch) -> losses dict: eval-mode BN, no gradient."""
+    """Returns eval_fn(batch) -> losses dict: eval-mode BN, no gradient, in
+    the training dtype and with its heads (the loss stays f32)."""
+    dtype, heads = config.dtype, config.heads
 
     def eval_fn(batch):
         net.eval()
         with torch.no_grad():
-            outputs = net(batch["image"])
+            outputs = forward_in(net, batch["image"], dtype, heads)
             return compute_losses(outputs, batch, config.loss)
 
     return eval_fn

@@ -7,7 +7,10 @@ input pipeline is the threaded loader, the compact host->device encoding
 (``--host_batch_compact``, 'exact' by default) and a device prefetcher that
 copies two batches ahead on a side CUDA stream.  Checkpoints are the JAX
 package's ``checkpoint.npz``, with the Adam state and the step counter, so
-``--load_path`` resumes the LR schedule.
+``--load_path`` resumes the LR schedule.  ``--compute_dtype bfloat16``
+trains on bf16 compute copies of the f32 masters (train/step.py), and by
+default with the packed '1/1_s2d' and '1/2_s2d2' heads, whose targets the
+device decode packs (``--s2d_head``/``--p4_head``, see ``resolve_head``).
 
 Cadences match the reference: console log every 100 steps; tensorboard and
 validation at steps divisible by both 100 and ``log_freq`` (see
@@ -30,10 +33,21 @@ from ..utils import sec_to_hm_str, select_device
 from .evaluator import Evaluator
 from .logger import TimeLogger, Timer, log
 from .losses import LossConfig
-from .step import TrainStepConfig, build_eval_step, build_train_step
+from .losses import TARGET_KEYS
+from .step import (TrainStepConfig, build_eval_step, build_train_step,
+                   resolve_compute_dtype)
 
 SEED = 10
 PROFILE_STEPS = (10, 15)  # --profile_dir traces steps [10, 15)
+
+
+def resolve_head(flag, compute_dtype):
+    """An ``--s2d_head``/``--p4_head`` value -> bool: 'auto' turns the packed
+    head on with bfloat16 compute and off with float32, as the JAX trainer
+    does (footprints_tpu/train/trainer.py); 'on' and 'off' force it."""
+    if flag == "auto":
+        return resolve_compute_dtype(compute_dtype) == torch.bfloat16
+    return flag == "on"
 
 
 def log_cadence(step, log_freq):
@@ -53,23 +67,21 @@ class TrainManager:
         self.device = select_device(getattr(options, "device", "cuda"))
         if getattr(options, "debug_nans", False):
             torch.autograd.set_detect_anomaly(True)
-        for flag in ("s2d_head", "p4_head"):
-            if getattr(options, flag, "auto") == "on":
-                raise NotImplementedError(
-                    f"--{flag} on: the packed training heads are not ported yet; "
-                    "they arrive with the bf16 mixed-precision training slice")
         self.train_loader, self.val_loader = self.create_dataloaders()
         steps_per_epoch = max(len(self.train_loader), 1)
         print(f"datasets done! train size - {len(self.train_loader.dataset)} images; "
               f"validation size - {len(self.val_loader.dataset)} images")
 
+        compute_dtype = getattr(self.opt, "compute_dtype", None)
         self.step_config = TrainStepConfig(
             learning_rate=self.opt.lr,
             steps_per_epoch=steps_per_epoch,
             loss=LossConfig(min_depth=self.opt.depth_range[0],
                             max_depth=self.opt.depth_range[1],
                             footprint_prior_weight=self.opt.footprint_prior),
-            compute_dtype=getattr(self.opt, "compute_dtype", None),
+            compute_dtype=compute_dtype,
+            s2d_head=resolve_head(getattr(self.opt, "s2d_head", "auto"), compute_dtype),
+            p4_head=resolve_head(getattr(self.opt, "p4_head", "auto"), compute_dtype),
         )
         self.model_manager = ModelManager(
             save_folder=os.path.join(self.opt.log_path, self.opt.model_name, "models"),
@@ -230,8 +242,12 @@ class TrainManager:
     # ------------------------------------------------------------------
 
     def _decode(self, batch):
-        # the scheme is read after the compactor has locked it on this batch
-        return decompact_on_device(batch, self._compactor.scheme)
+        # the scheme is read after the compactor has locked it on this
+        # batch; the packed heads' targets are packed here, off the step
+        config = self.step_config
+        return decompact_on_device(batch, self._compactor.scheme,
+                                   TARGET_KEYS if config.s2d_head else (),
+                                   TARGET_KEYS if config.p4_head else ())
 
     def _put(self, host_batch):
         """Compact, copy to the device and decode one host batch (in line:
@@ -251,7 +267,8 @@ class TrainManager:
             with torch.no_grad():
                 outputs = net(batch["image"][:4], scales=("1/1",))["1/1"].cpu().numpy()
             net.train(was_training)
-            inputs = {k: v[:4].cpu().numpy() for k, v in batch.items()}
+            # the logger reads the full-resolution maps, not their packs
+            inputs = {k: v[:4].cpu().numpy() for k, v in batch.items() if "@s2d" not in k}
         log(writer, inputs, outputs, losses, float(self.lr), self.step)
 
     def _profile_at(self, step):

@@ -166,5 +166,6 @@ def test_model_pth_loads_weights_only(tmp_path, capsys):
 
 
 def test_pretrained_encoder_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """The 'download' value stays out of the port: it fetches nothing."""
+    with pytest.raises(NotImplementedError, match="download is not ported"):
         ModelManager(depth=DEPTH, device="cpu", pretrained_encoder="download")

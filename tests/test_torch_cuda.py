@@ -2,7 +2,8 @@
 PyTorch version, the fused wrappers' gradients on the card (f32 and the
 bf16 route) against autograd through the plain version, the device
 prefetcher's copy, the models' GPU forward and train steps (the
-FootprintNetwork's, the Segmentor's in f32 and bf16) against the CPU's, and
+FootprintNetwork's in f32 and in bf16 with the packed heads, the
+Segmentor's in f32 and bf16) against the CPU's, and
 the batch dump's overlapped loop against its serial order.
 
 They skip on a host without CUDA.  This file imports neither JAX nor the JAX
@@ -458,6 +459,64 @@ def test_seg_bf16_step_runs_the_bf16_route(cuda_device):
                 / torch.cat([v.flatten() for v in g64.values()]).norm()).item()
 
     assert whole(g16) <= 2 * whole(g16_cpu), (whole(g16), whole(g16_cpu))
+    for k, v in g64.items():
+        gpu, cpu = ((g[k] - v).norm().item() / max(v.norm().item(), 1e-30)
+                    for g in (g16, g16_cpu))
+        assert gpu <= 2 * cpu + 1e-3, (k, gpu, cpu)
+
+
+def _footprint_step(device, batch, dtype=torch.float32, compute="float32", heads=True):
+    net = FootprintNetwork(18, device=device, generator=torch.Generator().manual_seed(26))
+    net.to(dtype)
+    config = tstep.TrainStepConfig(compute_dtype=compute, s2d_head=heads, p4_head=heads)
+    step = tstep.build_train_step(net, tstep.make_optimizer(net, config), config)
+    launches = fc.fused_conv3x3.launches, fc.fused_conv3x3.bf16_launches
+    metrics = step(0, {k: v.to(device, dtype) for k, v in batch.items()})
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = (fc.fused_conv3x3.launches - launches[0],
+                fc.fused_conv3x3.bf16_launches - launches[1])
+    grads = {n: p.grad.cpu().double() for n, p in net.named_parameters() if p.grad is not None}
+    return metrics, launches, grads, net
+
+
+def test_footprint_bf16_step_with_packed_heads_runs_the_bf16_route(cuda_device):
+    """The FootprintNetwork's mixed step with both packed heads on the card:
+    10 launches, all of the bf16 route; f32 masters and gradients; losses
+    within 1e-2 of the f32 step's and not equal to them; its gradient no
+    farther from an f64 CPU step than twice the CPU bf16 step's distance
+    (the CPU path is held against the JAX package in
+    tests/test_torch_bf16_train.py): the whole gradient, and each leaf plus
+    1e-3.  The f32 step with the heads equals the one without: loss terms
+    1e-6 relative, the whole gradient ||d||/||ref|| < 1e-5."""
+    g = torch.Generator().manual_seed(28)
+    batch = {"image": torch.rand(2, 64, 128, 3, generator=g),
+             "depth": torch.rand(2, 64, 128, generator=g) * 20,
+             "ground_depth": torch.rand(2, 64, 128, generator=g) * 15,
+             **{k: (torch.rand(2, 64, 128, generator=g) > 0.5).float()
+                for k in ("visible_ground", "all_ground", "depth_mask",
+                          "moving_object_mask")}}
+    m32, n32, g32, _ = _footprint_step(cuda_device, batch)
+    m_off, _, g_off, _ = _footprint_step(cuda_device, batch, heads=False)
+    m16, n16, g16, net = _footprint_step(cuda_device, batch, compute="bfloat16")
+    assert n32 == (10, 0) and n16 == (10, 10)
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    assert all(p.grad.dtype == torch.float32 for p in net.parameters() if p.grad is not None)
+    assert g16.keys() == g32.keys() == g_off.keys()
+    gap = max(abs(m16[k].item() - v.item()) for k, v in m32.items() if k != "lr")
+    assert 0 < gap < 1e-2 and all(torch.isfinite(v) for k, v in m16.items() if k != "lr")
+    for k, v in m_off.items():
+        if k != "lr":
+            assert abs(m32[k].item() - v.item()) <= 1e-6 * abs(v.item()), k
+    g16_cpu = _footprint_step("cpu", batch, compute="bfloat16")[2]
+    g64 = _footprint_step("cpu", batch, torch.float64)[2]
+
+    def whole(g, ref):
+        return (torch.cat([(g[k] - v).flatten() for k, v in ref.items()]).norm()
+                / torch.cat([v.flatten() for v in ref.values()]).norm()).item()
+
+    assert whole(g32, g_off) < 1e-5
+    assert whole(g16, g64) <= 2 * whole(g16_cpu, g64), (whole(g16, g64), whole(g16_cpu, g64))
     for k, v in g64.items():
         gpu, cpu = ((g[k] - v).norm().item() / max(v.norm().item(), 1e-30)
                     for g in (g16, g16_cpu))

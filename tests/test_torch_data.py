@@ -112,11 +112,6 @@ def test_image_decode_is_exact_for_every_code():
                                   codes.astype(np.float32) / np.float32(255.0))
 
 
-def test_packed_target_keys_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        decompact_on_device({}, {}, s2d_keys=("depth",))
-
-
 def test_device_prefetcher_on_cpu_keeps_order_and_decodes():
     batches = [{"x": np.full((2, 3), i, np.uint8)} for i in range(5)]
     out = list(DevicePrefetcher(iter(batches), "cpu", depth=2,

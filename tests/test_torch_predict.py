@@ -114,6 +114,8 @@ _IMPORT_ALL = (
     "import footprints_tpu_torch.preprocessing.segmentation.inference\n"
     "import footprints_tpu_torch.preprocessing.segmentation.trainer\n"
     "import footprints_tpu_torch.preprocessing.segmentation.losses\n"
+    "import footprints_tpu_torch.convert.bridge, footprints_tpu_torch.convert.cli\n"
+    "import footprints_tpu_torch.convert.torchvision_resnet\n"
     "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
     "    importlib.import_module(m.name)\n"
     "import chip_smoke\n"

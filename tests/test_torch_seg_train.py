@@ -33,6 +33,7 @@ from PIL import Image
 import jax
 import jax.numpy as jnp
 
+from footprints_tpu.convert import load_pretrained_encoder as jax_load_pretrained
 from footprints_tpu.data.compact import BatchCompactor as JaxBatchCompactor
 from footprints_tpu.data.loader import DataLoader as JaxDataLoader
 from footprints_tpu.models import Segmentor as JaxSegmentor
@@ -55,6 +56,7 @@ from footprints_tpu_torch.preprocessing.segmentation.options import Options
 from footprints_tpu_torch.preprocessing.segmentation.trainer import Trainer
 
 from ._torch_port import nchw, nhwc
+from .test_torch_pretrained import torchvision_state_dict
 
 H, W = 64, 96
 SEED = 10
@@ -489,11 +491,35 @@ def test_train_defaults_to_the_card(trees):
         seg_main(_argv(root, config))
 
 
-def test_pretrained_encoder_is_not_ported_yet(trees):
+def test_pretrained_encoder_missing_file_raises(trees):
     root, _, config = trees
-    with pytest.raises(NotImplementedError, match="export and convert slice"):
+    with pytest.raises(FileNotFoundError):
         Trainer(Options().parse(_argv(root, config, "--device", "cpu",
                                       "--pretrained_encoder", "x.pth")))
+
+
+def test_trainer_starts_from_the_pretrained_encoder(trees, tmp_path):
+    """The Segmentor's encoder equals a torchvision-layout file's weights
+    exactly, as the JAX package's loader reads them; the decoder and PSP
+    keep the seeded init."""
+    root, _, config = trees
+    path = str(tmp_path / "resnet18.pth")
+    torch.save(torchvision_state_dict(18, seed=8), path)
+    trainer = Trainer(Options().parse(_argv(root, config, "--device", "cpu",
+                                            "--pretrained_encoder", path)))
+    plain = Trainer(Options().parse(_argv(root, config, "--device", "cpu")))
+    for t in (trainer, plain):
+        t.val_iter.close()
+    params, state = segmentor_jax_params_from_state_dict(trainer.net.state_dict(), 18, True)
+    want = jax_load_pretrained(path, 18)
+    for got, ref in zip((params["encoder"], state["encoder"]), want):
+        assert jax.tree.structure(got) == jax.tree.structure(ref)
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref)):
+            assert np.array_equal(a, b)
+    ref = plain.net.state_dict()
+    for k, v in trainer.net.state_dict().items():
+        if k.startswith("decoder."):
+            assert torch.equal(v, ref[k]), k
 
 
 def test_options_keep_the_jax_defaults():

@@ -107,12 +107,6 @@ def test_compute_losses_matches_jax():
                                    err_msg=k)
 
 
-def test_packed_heads_are_not_ported():
-    with pytest.raises(NotImplementedError, match="1/1_s2d"):
-        tlosses.compute_losses({"1/1_s2d": torch.zeros(1, 2, 2, 16)},
-                               _torch_batch(_targets(1, 4, 4, 0)))
-
-
 # --- Adam + StepLR ----------------------------------------------------------
 
 def test_adam_step_lr_matches_optax_across_a_boundary():
@@ -153,10 +147,9 @@ def test_adam_step_lr_matches_optax_across_a_boundary():
         pytest.approx(lrs, rel=1e-6)
 
 
-@pytest.mark.parametrize("dtype,exc", [("bfloat16", NotImplementedError),
-                                       ("bf16", NotImplementedError),
-                                       ("float16", ValueError)])
+@pytest.mark.parametrize("dtype,exc", [("float16", ValueError)])
 def test_compute_dtype_other_than_f32_raises(dtype, exc):
+    """Only float32 and bfloat16 (mixed precision) are compute dtypes."""
     with pytest.raises(exc):
         tstep.TrainStepConfig(compute_dtype=dtype)
     assert tstep.TrainStepConfig(compute_dtype="float32").compute_dtype == "float32"
