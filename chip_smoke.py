@@ -155,7 +155,38 @@ final result line:
               autograd through the f32 plain version on the same
               bf16-rounded tensors (output 2e-2 + 2e-2|ref|; gradients
               ||d||/||ref|| < 2e-2 and 2e-2 max|ref| + 2e-2|ref|), then
-              timed.
+              timed;
+ 13. gt       GT generation through footprints_tpu_torch.preprocessing.
+              ground_truth_generation.generator on the GPU (where OpenCV,
+              Pillow and PyYAML import; otherwise the same generator classes
+              over in-memory loaders that return the loaders' arrays, and
+              the route says so), with TF32 turned on before it (the CLI
+              must turn it off).  A synthetic KITTI sequence (100 frames,
+              both sides: 375x1242 disparities, [1,192,640] float16
+              ground_seg, ORB-SLAM2 [3,4] poses of a camera 1.5 m above flat
+              ground moving 0.5 m a frame, eight box occluders, flow with a
+              moving object): hidden_depths for 24 targets with full
+              76-frame windows, depth_masks and moving_objects for 8; a
+              synthetic Matterport scan (8 panoramas x 18 = 144 frames,
+              1280x1024 16-bit depth PNGs; a real scan has ~2160):
+              hidden_depths and depth_masks for 8.  Checks the JAX CLI's
+              file names, dtypes and shapes (float64 zeros for a depth-mask
+              frame with < 100 ground pixels); each type against a
+              --device cpu run on the first 4 targets, at most 1e-3 of the
+              pixels differing (hidden depths: by more than 1e-4|ref| or in
+              being zero; depth masks: both sides fed the same RANSAC
+              triplets, the CLI runs' own draws' gap printed); the KITTI
+              hidden depths against the plane depth through each pixel's
+              centre (median relative error < 2%, the 95th percentile and
+              the occluded ground's coverage printed); the moving object
+              flagged at >= 0.9 of its pixels and the static scene at
+              <= 0.02;
+     gt_times the KITTI aggregate per target split into projection, splat
+              and median, and compute_depth_mask alone (CUDA events, each
+              beside its inputs' and outputs' bytes at the HBM rate); the
+              generator's frames/s with its loader and writer over the 24
+              targets and the loader alone; the Matterport aggregate on the
+              scan's frames repeated to a real scan's 2176 (ms, peak memory).
 
 Exits non-zero when CUDA is absent or the package is not beside this file.
 """
@@ -168,6 +199,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -178,6 +210,7 @@ from footprints_tpu_torch import predict_simple
 from footprints_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from footprints_tpu_torch.convert import segmentor_jax_params_from_state_dict
 from footprints_tpu_torch.core.config import readlines
+from footprints_tpu_torch.core.ops import np_pixel_disp_to_depth
 from footprints_tpu_torch.data import DataLoader, collate, get_inference_dataset_class
 from footprints_tpu_torch.data.compact import decompact_on_device
 from footprints_tpu_torch.eval import evaluate
@@ -185,6 +218,12 @@ from footprints_tpu_torch.eval.inference import InferenceManager
 from footprints_tpu_torch.model_manager import ModelManager
 from footprints_tpu_torch.models import SCALES, FootprintNetwork, Segmentor
 from footprints_tpu_torch.nn import resnet
+from footprints_tpu_torch.preprocessing.ground_truth_generation import data_loader as gt_loader
+from footprints_tpu_torch.preprocessing.ground_truth_generation import generator as gt_generator
+from footprints_tpu_torch.preprocessing.ground_truth_generation import geometry as gt_geometry
+from footprints_tpu_torch.preprocessing.ground_truth_generation import ransac as gt_ransac
+from footprints_tpu_torch.preprocessing.ground_truth_generation.processing import (
+    compute_depth_mask)
 from footprints_tpu_torch.preprocessing.segmentation import datasets as seg_datasets
 from footprints_tpu_torch.preprocessing.segmentation import main as seg_main
 from footprints_tpu_torch.preprocessing.segmentation import trainer as seg_trainer
@@ -2407,6 +2446,580 @@ def phase_seg_train_times(fail, host, timed_trainer):
     return per_step
 
 
+# --- GT generation --------------------------------------------------------------
+
+GT_HW, MP_GT_HW, MP_DEPTH_HW = (192, 640), (480, 640), (1024, 1280)
+GT_FRAMES = 100  # per stereo side
+GT_CAM_HEIGHT, GT_STEP, GT_BASELINE = 1.5, 0.5, 0.54  # m: ground below, forward per frame
+GT_MAX_DEPTH = 60.0  # ground farther away reads as a disparity hole
+# boxes standing on the ground beside the path (world metres): x0, x1, z0, z1, height
+GT_BOXES = ([(-3.6, -1.6, z, z + 1.5, 1.0) for z in (8.0, 20.0, 32.0, 44.0)]
+            + [(1.8, 3.8, z, z + 1.5, 1.2) for z in (14.0, 26.0, 38.0, 50.0)])
+# hidden depths: 24 targets whose 76-frame windows (25 back, 50 forward, step
+# 2, both sides) lie inside the 100 frames; depth and moving-object masks: 8
+GT_HIDDEN = [f"seq0 {f} {'lr'[f % 2]}" for f in range(26, 50)]
+GT_MASKS = [f"seq0 {f} {'lr'[i % 2]}" for i, f in enumerate(range(30, 46, 2))]
+GT_CPU_TARGETS = 4  # the --device cpu twin covers the first 4 of each split
+GT_BLOB, GT_BLOB_FLOW = (130, 150, 260, 360), 6.0  # a moving object: rows, cols; px
+GT_PLANE_BAR = 0.02  # median relative error of the hidden depths against the plane
+GT_PIXEL_BAR = 1e-3  # share of pixels where the GPU and CPU outputs may differ
+# Matterport: a room with two pieces of furniture, 8 panoramas x (3 heights x 6
+# directions); a real scan has ~2160 frames, cut here for file-writing time
+MP_ROOM = ((-6.0, 6.0), (-5.0, 5.0), (0.0, 2.8))
+MP_BOXES = [((1.0, -1.5, 0.0), (2.2, -0.3, 0.75)), ((-3.0, 1.5, 0.0), (-2.0, 3.0, 1.0))]
+MP_POSITIONS = [(-4.0, -3.0), (-1.5, -3.5), (1.5, -3.5), (4.0, -3.0),
+                (-4.0, 0.0), (0.0, 0.5), (3.5, 1.0), (0.0, 3.5)]
+MP_K_FULL = (1075.0, 1075.0, 640.0, 512.0)  # fx, fy, cx, cy at 1280x1024
+MP_TARGETS = [f"scan0 pano{p:06d} {p % 2} {p % 6}" for p in range(len(MP_POSITIONS))]
+MP_REAL_FRAMES = 2176  # ~2160 frames of a Matterport3D scan, padded to 64
+
+
+def have_gt_libs():
+    """The GT loaders read with OpenCV and Pillow, the CLI's paths with PyYAML."""
+    return all(importlib.util.find_spec(m) is not None for m in ("cv2", "PIL", "yaml"))
+
+
+def kitti_rays(sample_hw, device):
+    """Ray directions (dx, dy, 1) of the KITTI loader's camera at GT_HW
+    through the points where a `sample_hw` image's pixels land when
+    cv2.resize brings it to GT_HW; a field affine in those points then
+    resizes to its value at each GT_HW pixel.  Also returns those points."""
+    (h, w), (sh, sw) = GT_HW, sample_hw
+    u = (torch.arange(sw, dtype=torch.float64, device=device) + 0.5) * w / sw - 0.5
+    v = (torch.arange(sh, dtype=torch.float64, device=device) + 0.5) * h / sh - 0.5
+    u, v = u[None, :].expand(sh, sw), v[:, None].expand(sh, sw)
+    return (u - 0.5 * w) / (0.58 * w), (v - 0.5 * h) / (1.92 * h), u, v
+
+
+def kitti_depth(dx, dy, cam_x, cam_z):
+    """Depth along the optical axis (0 where nothing within GT_MAX_DEPTH is
+    hit) and the ground-hit mask of rays (dx, dy, 1) from a camera at
+    (cam_x, 0, cam_z): the ground GT_CAM_HEIGHT below and GT_BOXES."""
+    t_ground = torch.where(dy > 0, GT_CAM_HEIGHT / dy.clamp_min(1e-12), torch.inf)
+    t = t_ground
+    for x0, x1, z0, z1, height in GT_BOXES:
+        near_z, far_z = max(z0, cam_z + 0.1) - cam_z, z1 - cam_z
+        if far_z <= near_z:
+            continue
+        tx0, tx1 = (x0 - cam_x) / dx, (x1 - cam_x) / dx
+        ty0, ty1 = (GT_CAM_HEIGHT - height) / dy, GT_CAM_HEIGHT / dy
+        near = torch.maximum(torch.minimum(tx0, tx1), torch.minimum(ty0, ty1)).clamp_min(near_z)
+        far = torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)).clamp_max(far_z)
+        t = torch.where((near <= far) & (near < t), near, t)
+    depth = torch.where(t < GT_MAX_DEPTH, t, 0.0)
+    return depth, (t == t_ground) & (depth > 0)
+
+
+def kitti_frame(frame, side, sample_hw, device, flow=False):
+    """One frame of the synthetic sequence as the GT loaders read it: the
+    PSMNet-layout disparity sampled at `sample_hw` (scaled so the loader's
+    width rescale gives GT_HW pixels), the ground_seg [1,192,640] float16
+    (PR 4's dump), the ORB-SLAM2 [3,4] pose of the left camera and, with
+    `flow`, the [2, *sample_hw] flow to the previous frame: the flow the
+    motion induces, plus GT_BLOB_FLOW px in x on the moving object."""
+    cam_x, cam_z = (0.0 if side == "image_02" else GT_BASELINE), GT_STEP * frame
+    dx, dy, u, v = kitti_rays(sample_hw, device)
+    depth, _ = kitti_depth(dx, dy, cam_x, cam_z)
+    fx = 0.58 * GT_HW[1]
+    scale_x, scale_y = sample_hw[1] / GT_HW[1], sample_hw[0] / GT_HW[0]
+    disp = torch.where(depth > 0, fx * GT_BASELINE / depth.clamp_min(1e-12), 0.0) * scale_x
+    _, ground = kitti_depth(*kitti_rays(GT_HW, device)[:2], cam_x, cam_z)
+    pose = np.eye(4)[:3]
+    pose[2, 3] = cam_z
+    out = {"disparity": disp.float().cpu().numpy(), "pose": pose.astype(np.float32),
+           "ground_seg": ground[None].to(torch.float16).cpu().numpy()}
+    if flow:
+        z = depth + GT_STEP  # the previous camera is GT_STEP behind
+        fu = 0.5 * GT_HW[1] + 0.58 * GT_HW[1] * depth * dx / z - u
+        fv = 0.5 * GT_HW[0] + 1.92 * GT_HW[0] * depth * dy / z - v
+        r0, r1, c0, c1 = GT_BLOB
+        blob = (v >= r0) & (v < r1) & (u >= c0) & (u < c1)
+        fu = fu + GT_BLOB_FLOW * blob
+        out["flow"] = (torch.stack([fu * scale_x, fv * scale_y]) * (depth > 0)
+                       ).float().cpu().numpy()
+    return out
+
+
+def mp_pose(position, height, direction):
+    """Camera-to-world pose: yaw in 60-degree steps, pitch -30 / 0 / +30 by
+    height index, 1.5 m above the floor; camera x right, y down, z forward,
+    world z up."""
+    yaw, pitch = np.deg2rad(60.0 * direction), np.deg2rad(30.0 * (height - 1))
+    forward = np.array([np.cos(yaw) * np.cos(pitch), np.sin(yaw) * np.cos(pitch),
+                        np.sin(pitch)])
+    right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+    pose = np.eye(4)
+    pose[:3, :3] = np.stack([right, np.cross(forward, right), forward], 1)
+    pose[:3, 3] = [position[0], position[1], GT_CAM_HEIGHT]
+    return pose
+
+
+def mp_depth(pose, hw, device):
+    """Depth along the optical axis and floor-hit mask of the room seen
+    through MP_K_FULL scaled to `hw`."""
+    h, w = hw
+    fx, fy = MP_K_FULL[0] * w / 1280, MP_K_FULL[1] * h / 1024
+    cx, cy = MP_K_FULL[2] * w / 1280, MP_K_FULL[3] * h / 1024
+    v, u = torch.meshgrid(torch.arange(h, dtype=torch.float64, device=device),
+                          torch.arange(w, dtype=torch.float64, device=device), indexing="ij")
+    rays = torch.stack([(u - cx) / fx, (v - cy) / fy, torch.ones_like(u)])
+    R = torch.from_numpy(pose[:3, :3]).to(device)
+    d = torch.einsum("ij,jhw->ihw", R, rays)
+    c = pose[:3, 3]
+    walls = [torch.where(tw > 0, tw, torch.inf) for tw in
+             ((wall - c[axis]) / d[axis] for axis, bounds in enumerate(MP_ROOM)
+              for wall in bounds)]
+    floor = walls[4]  # z = MP_ROOM[2][0]
+    t = torch.stack(walls).amin(0)
+    for lo, hi in MP_BOXES:
+        t0 = (torch.tensor(lo, dtype=torch.float64, device=device)[:, None, None]
+              - torch.from_numpy(c).to(device)[:, None, None]) / d
+        t1 = (torch.tensor(hi, dtype=torch.float64, device=device)[:, None, None]
+              - torch.from_numpy(c).to(device)[:, None, None]) / d
+        near = torch.minimum(t0, t1).nan_to_num(-torch.inf).amax(0)
+        far = torch.maximum(t0, t1).nan_to_num(torch.inf).amin(0)
+        t = torch.where((near <= far) & (near > 0) & (near < t), near, t)
+    return t, t == floor
+
+
+def mp_frames():
+    return [(f"pano{p:06d}", h, d) for p in range(len(MP_POSITIONS))
+            for h in range(3) for d in range(6)]
+
+
+def mp_frame(pos, height, direction, depth_hw, device):
+    """(ground_seg [1,480,640] float16, depth [*depth_hw] in m, pose)."""
+    pose = mp_pose(MP_POSITIONS[int(pos[4:])], height, direction)
+    depth, _ = mp_depth(pose, depth_hw, device)
+    _, ground = mp_depth(pose, MP_GT_HW, device)
+    return (ground[None].to(torch.float16).cpu().numpy(),
+            depth.clamp_max(65535 * 0.00025).cpu().numpy(), pose)
+
+
+def make_gt_trees(root, real, device):
+    """The synthetic KITTI sequence and Matterport scan under `root`, the
+    splits and paths.yaml; without `real` only the splits (the in-memory
+    route).  Returns {name: path}."""
+    paths = {"kitti_td": os.path.join(root, "kitti_td"),
+             "mp_raw": os.path.join(root, "mp_raw"), "mp_td": os.path.join(root, "mp_td"),
+             "config": os.path.join(root, "paths.yaml")}
+    for name, lines in (("hidden", GT_HIDDEN), ("masks", GT_MASKS), ("mp", MP_TARGETS)):
+        paths[name] = os.path.join(root, f"{name}.txt")
+        with open(paths[name], "w") as f:
+            f.write("\n".join(lines))
+    if not real:
+        return paths
+
+    import yaml
+    from PIL import Image
+
+    flows = {(int(f) - k, "image_02" if s == "l" else "image_03")
+             for f, s in (line.split()[1:] for line in GT_MASKS) for k in (0, 1)}
+    td = paths["kitti_td"]
+
+    def save(path, array):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, array)
+
+    def save_png(path, depth):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray((depth / 0.00025).astype(np.uint16)).save(path, compress_level=1)
+
+    with ThreadPoolExecutor(8) as pool:
+        jobs = []
+        for frame in range(GT_FRAMES):
+            name = f"{frame:010d}.npy"
+            for side in ("image_02", "image_03"):
+                data = kitti_frame(frame, side, KITTI_RAW_HW, device,
+                                   flow=(frame, side) in flows)
+                jobs.append(pool.submit(save, os.path.join(
+                    td, "stereo_matching_disps", "seq0", side, name), data["disparity"]))
+                jobs.append(pool.submit(save, os.path.join(
+                    td, "ground_seg", "seq0", side, "data", name), data["ground_seg"]))
+                if "flow" in data:
+                    jobs.append(pool.submit(save, os.path.join(
+                        td, "optical_flow", "seq0", side, "data", name), data["flow"]))
+            jobs.append(pool.submit(save, os.path.join(
+                td, "poses", "seq0", "orbslam_poses", name), data["pose"]))
+        scan = os.path.join(paths["mp_raw"], "scan0", "scan0")
+        for pos, height, direction in mp_frames():
+            ground, depth, pose = mp_frame(pos, height, direction, MP_DEPTH_HW, device)
+            jobs.append(pool.submit(save, os.path.join(
+                paths["mp_td"], "ground_seg", "scan0", "data",
+                f"{pos}_{height}_{direction}.npy"), ground))
+            jobs.append(pool.submit(save_png, os.path.join(
+                scan, "matterport_depth_images", f"{pos}_d{height}_{direction}.png"), depth))
+            os.makedirs(os.path.join(scan, "matterport_camera_poses"), exist_ok=True)
+            np.savetxt(os.path.join(scan, "matterport_camera_poses",
+                                    f"{pos}_pose_{height}_{direction}.txt"), pose)
+            os.makedirs(os.path.join(scan, "matterport_camera_intrinsics"), exist_ok=True)
+            np.savetxt(os.path.join(scan, "matterport_camera_intrinsics",
+                                    f"{pos}_intrinsics_{height}.txt"),
+                       [[1280, 1024, *MP_K_FULL, 0, 0, 0, 0, 0]])
+        for job in jobs:
+            job.result()
+    with open(paths["config"], "w") as f:
+        yaml.safe_dump({"kitti": {"dataset": "", "training_data": td},
+                        "matterport": {"dataset": paths["mp_raw"],
+                                       "training_data": paths["mp_td"]}}, f)
+    return paths
+
+
+class InMemoryKITTILoader(gt_loader.KITTILoader):
+    """The KITTI loader's dicts from the scene itself, rendered at the
+    working size (no files, no OpenCV)."""
+    device = "cpu"
+
+    def load_frame_data(self, sequence, frame, side, load_flow=False,
+                        use_buffer=True, threshold_ground=True):
+        if use_buffer and (sequence, frame, side) in self.buffer:
+            return self.buffer[(sequence, frame, side)]
+        if not 0 <= frame < GT_FRAMES:
+            return None
+        data = kitti_frame(frame, side, GT_HW, self.device, flow=load_flow)
+        ground = data["ground_seg"][0].astype(np.float64)
+        pose = np.eye(4)
+        pose[:3] = data["pose"]
+        out = {"disparity": data["disparity"].astype(np.float64), "pose": pose,
+               "ground_seg": ((ground > self.footprint_threshold).astype(float)
+                              if threshold_ground else ground)}
+        if load_flow:
+            out["flow"] = data["flow"].astype(np.float64)
+        if use_buffer:
+            self.buffer[(sequence, frame, side)] = out
+        return out
+
+
+class InMemoryMatterportLoader(gt_loader.MatterportLoader):
+    """The Matterport loader's arrays from the scene itself, at the working
+    size (no files, no OpenCV or Pillow)."""
+    device = "cpu"
+
+    def load_frame_data(self, scan, pos, height, direction):
+        ground, depth, pose = mp_frame(pos, int(height), int(direction), MP_GT_HW,
+                                       self.device)
+        depth = np.floor(depth / 0.00025) * 0.00025  # the PNG's 16-bit steps
+        K = np.eye(4)
+        K[:2, :3] = [[MP_K_FULL[0], 0, MP_K_FULL[2]], [0, MP_K_FULL[1], MP_K_FULL[3]]]
+        K[0] *= self.width / self.FULL_WIDTH
+        K[1] *= self.height / self.FULL_HEIGHT
+        return (ground[0] > self.footprint_threshold).astype(float), depth, pose, K
+
+    def load_scan_data(self):
+        frames = [self.load_frame_data(self.current_scan, p, str(h), str(d))
+                  for p, h, d in mp_frames()]
+        for (p, h, d), frame in zip(mp_frames(), frames):
+            self.pose_tracker[(p, str(h), str(d))] = frame[2]
+        stack = [np.stack(a).astype(np.float32) for a in zip(*frames)]
+        self.scan_data = {"ground_segs": stack[0], "depths": stack[1], "poses": stack[2],
+                          "intrinsics": stack[3],
+                          "inv_intrinsics": np.stack([np.linalg.pinv(f[3]) for f in frames]
+                                                     ).astype(np.float32)}
+
+
+def in_memory_generator(data_type, kind, argv, paths, device):
+    """The CLI's generator class for (data_type, kind) over the in-memory
+    loader, its outputs under the same training-data folder."""
+    base = gt_generator.GENERATORS[(data_type, kind)]
+    loader_cls = InMemoryKITTILoader if data_type == "kitti" else InMemoryMatterportLoader
+    training_data = paths["kitti_td" if data_type == "kitti" else "mp_td"]
+
+    class InMemory(base):
+        def parse_config(self, config_path, data_key):
+            return "", training_data
+
+        def __init__(self, opts):
+            super().__init__(opts)
+            self.loader = loader_cls("", training_data, self.height, self.width,
+                                     footprint_threshold=self.footprint_threshold)
+            self.loader.device = device
+
+    return InMemory(gt_generator.get_options(argv))
+
+
+def drive_gt(data_type, kind, argv, real, paths, device):
+    """Run the GT CLI (`real`), or the same generator class over the
+    in-memory loader; returns the generator and its host seconds (loader,
+    device work and writer included)."""
+    t0 = time.perf_counter()
+    if real:
+        generator = gt_generator.main(argv)
+    else:
+        generator = in_memory_generator(data_type, kind, argv, paths, device)
+        generator.run()
+    return generator, time.perf_counter() - t0
+
+
+def gt_outputs(folder):
+    return {os.path.relpath(os.path.join(d, f), folder): np.load(os.path.join(d, f))
+            for d, _, fs in os.walk(folder) for f in fs if f.endswith(".npy")}
+
+
+def gt_names(lines, data_type):
+    if data_type == "kitti":
+        return sorted(f"seq0/{'image_02' if s == 'l' else 'image_03'}/data/{f.zfill(10)}.npy"
+                      for f, s in (line.split()[1:] for line in lines))
+    return sorted(f"scan0/data/{'_'.join(line.split()[1:])}.npy" for line in lines)
+
+
+def check_gt_files(fail, tag, files, lines, data_type, dtype):
+    """The JAX CLI's names, dtype and shape; a depth mask may be its float64
+    zeros (fewer than 100 ground pixels).  Returns how many are."""
+    hw = GT_HW if data_type == "kitti" else MP_GT_HW
+    zeros = [n for n, a in files.items() if dtype == np.bool_ and a.dtype == np.float64
+             and a.shape == hw and not a.any()]
+    bad = [n for n, a in files.items() if n not in zeros and (
+        a.shape != hw or a.dtype != dtype or not np.isfinite(a).all())]
+    fail.check(sorted(files) == gt_names(lines, data_type) and not bad,
+               f"{tag}: {len(files)} files, expected {len(lines)}; "
+               f"wrong dtype/shape/non-finite: {bad[:3]}")
+    return len(zeros)
+
+
+def gt_gap(got, ref):
+    """Share of pixels where `got` differs from `ref` by more than 1e-4|ref|
+    or in being zero (hidden depths), or at all (masks)."""
+    if ref.dtype == np.bool_:
+        return float((got != ref).mean())
+    return float(((np.abs(got - ref) > 1e-4 * np.abs(ref)) | ((got > 0) != (ref > 0))).mean())
+
+
+def gt_run(fail, tag, data_type, kind, lines_path, paths, real, device):
+    """One type through the CLI on `device` and its --device cpu twin on the
+    first GT_CPU_TARGETS lines: the files' names, dtypes and shapes, and the
+    share of pixels that differ.  Returns (the generator, its seconds, the
+    device run's files)."""
+    lines = readlines(lines_path)
+    dtype = np.float32 if kind == "hidden_depths" else np.bool_
+
+    def argv(dev, folder, end=-1):
+        return ["--type", kind, "--data_type", data_type, "--textfile", lines_path,
+                "--config_path", paths["config"], "--device", dev,
+                "--save_folder_name", folder, "--idx_end", str(end)]
+
+    td = paths["kitti_td" if data_type == "kitti" else "mp_td"]
+    generator, seconds = drive_gt(data_type, kind, argv(device, kind), real, paths, device)
+    drive_gt(data_type, kind, argv("cpu", kind + "_cpu", GT_CPU_TARGETS), real, paths, "cpu")
+    files = gt_outputs(os.path.join(td, kind))
+    twins = gt_outputs(os.path.join(td, kind + "_cpu"))
+    zeros = check_gt_files(fail, tag, files, lines, data_type, dtype)
+    check_gt_files(fail, tag + " (cpu)", twins, sorted(lines)[:GT_CPU_TARGETS], data_type, dtype)
+    gaps = {n: gt_gap(files[n], twins[n]) for n in twins if n in files}
+    worst = max(gaps.values(), default=1.0)
+    fields = {}
+    if kind == "depth_masks":
+        # the two runs draw RANSAC's triplets from a CUDA and a CPU generator:
+        # the same draws are fed to both sides to hold everything else
+        fields["cli_gpu_vs_cpu_pixel_share_own_draws"] = worst
+        worst = fed_mask_gap(generator, sorted(lines)[:GT_CPU_TARGETS])
+    fail.check(len(gaps) == GT_CPU_TARGETS and worst <= GT_PIXEL_BAR,
+               f"{tag}: GPU vs CPU differ at {worst:.2e} of the pixels (bar {GT_PIXEL_BAR})")
+    emit("gt", data=data_type, type=kind, targets=len(files), float64_zeros_files=zeros,
+         gpu_vs_cpu_pixel_share=worst, cpu_targets=len(gaps), **fields,
+         frames_per_s_with_loader_and_writer=len(files) / seconds)
+    return generator, seconds, files
+
+
+def depth_mask_inputs(generator, line, i):
+    """(depth, ground_seg, K, invK) as the generator's process_data hands
+    them to compute_depth_mask."""
+    data = generator.load_data(i, line)
+    if "disparity" in data:  # KITTI
+        loader = generator.loader
+        depth = np_pixel_disp_to_depth(data["disparity"], loader.K[0, 0],
+                                       loader.stereo_baseline)
+        return depth, data["ground_seg"], loader.K, loader.invK
+    return data["depth"], data["ground_seg"], data["K"], data["invK"]
+
+
+def fed_mask_gap(generator, lines):
+    """The worst share of pixels where compute_depth_mask on the generator's
+    device and on the CPU differ, both fed the same triplets (drawn on the
+    CPU, seeded), over `lines`' frames with enough ground."""
+    worst = 0.0
+    for i, line in enumerate(lines):
+        arrays = [np.asarray(a, np.float32) for a in depth_mask_inputs(generator, line, i)]
+        fit = (arrays[1] > generator.footprint_threshold) & (arrays[0] > 0)
+        if (arrays[1] > generator.footprint_threshold).sum() < gt_generator.MIN_GROUND_PIXELS:
+            continue
+        idx = gt_ransac.draw_triplets(torch.from_numpy(fit.reshape(-1)), gt_ransac.DEFAULT_ITERS,
+                                      torch.Generator().manual_seed(SEED))
+        masks = [compute_depth_mask(*(torch.from_numpy(a).to(dev) for a in arrays),
+                                    height=generator.height, width=generator.width,
+                                    idx=idx.to(dev)).cpu().numpy()
+                 for dev in (generator.device, "cpu")]
+        worst = max(worst, float((masks[0] != masks[1]).mean()))
+    return worst
+
+
+def plane_errors(files):
+    """Relative error of each hidden depth against the scene's plane depth
+    through the pixel's centre, at the nonzero pixels (inf at a nonzero
+    pixel above the horizon, where no ground is); and the share of the
+    pixels whose ground a box hides in the target's own view that got a
+    depth."""
+    h, w = GT_HW
+    rows = np.arange(h, dtype=np.float64)[:, None] + 0.5
+    plane = np.broadcast_to(np.where(
+        rows > 0.5 * h, 1.92 * h * GT_CAM_HEIGHT / np.maximum(rows - 0.5 * h, 1e-9), np.inf),
+        GT_HW)
+    dx, dy = kitti_rays(GT_HW, "cpu")[:2]
+    errors, hidden, covered = [], 0, 0
+    for name, out in files.items():
+        side, frame = name.split("/")[1], int(name.split("/")[-1][:10])
+        _, ground = kitti_depth(dx, dy, 0.0 if side == "image_02" else GT_BASELINE,
+                                GT_STEP * frame)
+        occluded = (plane < GT_MAX_DEPTH) & ~ground.numpy()
+        hit = out > 0
+        errors.append(np.abs(out[hit] - plane[hit]) / plane[hit])
+        hidden += int(occluded.sum())
+        covered += int((occluded & hit).sum())
+    errors = np.nan_to_num(np.concatenate(errors), nan=np.inf)
+    return errors, covered / max(hidden, 1)
+
+
+def phase_gt(fail, workdir, device="cuda"):
+    """GT generation through the port's CLI (module docstring, phase 13).
+    Returns the generators and the KITTI hidden-depth run's seconds, for
+    phase gt_times."""
+    real = have_gt_libs()
+    # the CLI must turn TF32 off itself (utils.select_device): a pixel's
+    # index is the floor of a projected coordinate
+    torch.backends.cuda.matmul.allow_tf32 = True
+    route = ("footprints_tpu_torch.preprocessing.ground_truth_generation.generator.main"
+             if real else "the generators over in-memory loaders (no OpenCV/Pillow/PyYAML)")
+    t0 = time.perf_counter()
+    paths = make_gt_trees(workdir, real, device)
+    setup_s = time.perf_counter() - t0
+    emit("gt", route=route, setup_seconds=setup_s,
+         kitti=f"1 sequence, {GT_FRAMES} frames x 2 sides, disparities at "
+               f"{KITTI_RAW_HW[0]}x{KITTI_RAW_HW[1]}",
+         matterport=f"{len(mp_frames())} frames ({len(MP_POSITIONS)} panoramas x 18), depth "
+                    f"PNGs at {MP_DEPTH_HW[1]}x{MP_DEPTH_HW[0]}: cut from a real scan's "
+                    f"~2160 frames for file-writing time")
+    hidden_gen, hidden_s, hidden = gt_run(fail, "gt kitti hidden_depths", "kitti",
+                                          "hidden_depths", paths["hidden"], paths, real, device)
+    fail.check(not torch.backends.cuda.matmul.allow_tf32,
+               "gt: the CLI left TF32 on for matmuls")
+    errors, coverage = plane_errors(hidden)
+    median = float(np.median(errors)) if len(errors) else float("inf")
+    fail.check(median < GT_PLANE_BAR,
+               f"gt kitti hidden_depths: median relative error {median:.4f} against the "
+               f"plane (bar {GT_PLANE_BAR})")
+    emit("gt", data="kitti", type="hidden_depths", plane_median_rel_err=median,
+         plane_p95_rel_err=float(np.quantile(errors, 0.95, method="nearest")),
+         above_horizon_pixels=int(np.isinf(errors).sum()), nonzero_pixels=len(errors),
+         occluded_ground_coverage=coverage)
+
+    mask_gen, _, masks = gt_run(fail, "gt kitti depth_masks", "kitti", "depth_masks",
+                                paths["masks"], paths, real, device)
+    flagged = sum(int(m.sum()) for m in masks.values())
+    fail.check(flagged > 0, "gt kitti depth_masks: no pixel flagged")
+
+    _, _, moving = gt_run(fail, "gt kitti moving_objects", "kitti", "moving_objects",
+                          paths["masks"], paths, real, device)
+    r0, r1, c0, c1 = GT_BLOB
+    blob = np.zeros(GT_HW, bool)
+    blob[r0:r1, c0:c1] = True
+    recall = float(np.mean([m[blob].mean() for m in moving.values()]))
+    static = float(np.mean([m[~blob].mean() for m in moving.values()]))
+    fail.check(recall >= 0.9 and static <= 0.02,
+               f"gt kitti moving_objects: the moving object flagged at {recall:.3f} "
+               f"(bar 0.9), the static scene at {static:.4f} (bar 0.02)")
+    emit("gt", data="kitti", type="masks", depth_mask_flagged_pixels=flagged,
+         moving_object_recall=recall, static_flagged_share=static)
+
+    mp_gen, _, mp_hidden = gt_run(fail, "gt matterport hidden_depths", "matterport",
+                                  "hidden_depths", paths["mp"], paths, real, device)
+    coverage = float(np.mean([(m > 0).mean() for m in mp_hidden.values()]))
+    fail.check(coverage > 0.05, f"gt matterport hidden_depths: {coverage:.3f} of the pixels")
+    _, _, mp_masks = gt_run(fail, "gt matterport depth_masks", "matterport", "depth_masks",
+                            paths["mp"], paths, real, device)
+    emit("gt", data="matterport", frames_per_scan=len(mp_frames()),
+         hidden_depth_nonzero_share=coverage,
+         depth_mask_flagged_pixels=sum(int(m.sum()) for m in mp_masks.values()))
+    return {"kitti_hidden": (hidden_gen, hidden_s), "kitti_masks": mask_gen,
+            "mp_hidden": mp_gen}
+
+
+def phase_gt_times(fail, runs, smi):
+    """The GT path's device times (CUDA events) on one KITTI target's
+    76-frame window, the depth mask alone, the loader alone, and the
+    Matterport aggregate at a real scan's MP_REAL_FRAMES frames."""
+    hidden_gen, hidden_s = runs["kitti_hidden"]
+    t = hidden_gen.to_device
+    data = hidden_gen.load_data(0, hidden_gen.filenames[0])
+    depths, poses, K, invK = (t(data[k]) for k in ("depths", "poses", "intrinsics",
+                                                     "inv_intrinsics"))
+    n, (h, w) = len(depths), GT_HW
+    grid = gt_geometry.pixel_grid(h, w, depths.device)
+
+    def project():
+        return gt_geometry.project_to_camera(
+            gt_geometry.project_to_world(depths, invK, grid), poses, K)
+
+    cam = project()
+
+    def splat():
+        return gt_geometry.extract_depth_from_projections(cam, h, w)
+
+    projections = splat()
+
+    def aggregate():
+        return gt_geometry.aggregate_hidden_depth(depths, poses, K, invK, height=h, width=w)
+
+    stages = {"projection": (project, n * h * w * 4 * (1 + 4)),
+              "splat": (splat, n * h * w * 4 * (4 + 1)),
+              "median": (lambda: gt_geometry.masked_median(projections, min_hits=2),
+                         (n + 1) * h * w * 4),
+              "aggregate": (aggregate, (n + 1) * h * w * 4)}
+    kitti = {name: {"ms": time_ms(fn), "bound_ms": nbytes / PEAK_BYTES * 1e3}
+             for name, (fn, nbytes) in stages.items()}
+
+    mask_gen = runs["kitti_masks"]
+    args = [t(a) for a in depth_mask_inputs(mask_gen, mask_gen.filenames[0], 0)]
+    mask_ms = time_ms(lambda: compute_depth_mask(*args, height=h, width=w,
+                                                 generator=mask_gen.generator))
+
+    loader_gen = type(hidden_gen)(hidden_gen.opts)  # a cold buffer, as the timed run's
+    t0 = time.perf_counter()
+    for i, line in enumerate(loader_gen.filenames):
+        loader_gen.load_data(i, line)
+    loader_s = time.perf_counter() - t0
+
+    mp_gen = runs["mp_hidden"]
+    data = mp_gen.load_data(0, mp_gen.filenames[0])
+    reps = -(-MP_REAL_FRAMES // len(data["depths"]))
+    scan = [t(data[k]).repeat(reps, 1, 1)[:MP_REAL_FRAMES]
+            for k in ("depths", "poses", "intrinsics", "inv_intrinsics")]
+    small = gt_geometry.aggregate_hidden_depth(
+        *(t(data[k]) for k in ("depths", "poses", "intrinsics", "inv_intrinsics")),
+        height=MP_GT_HW[0], width=MP_GT_HW[1], robust=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    big = gt_geometry.aggregate_hidden_depth(*scan, height=MP_GT_HW[0], width=MP_GT_HW[1],
+                                             robust=False)
+    peak = torch.cuda.max_memory_allocated()
+    fail.check(bool(torch.isfinite(big).all()) and bool(((big > 0) == (small > 0)).all()),
+               "gt_times: the Matterport aggregate over the repeated scan hits other "
+               "pixels than over the scan")
+    mp_ms = time_ms(lambda: gt_geometry.aggregate_hidden_depth(
+        *scan, height=MP_GT_HW[0], width=MP_GT_HW[1], robust=False), iters=3, warmup=1)
+    emit("gt_times", nvidia_smi=smi,
+         kitti_window_frames=n, kitti_aggregate_per_target=kitti,
+         depth_mask_ms=mask_ms,
+         generator_frames_per_s_with_loader_and_writer=len(hidden_gen.filenames) / hidden_s,
+         loader_alone_frames_per_s=len(loader_gen.filenames) / loader_s,
+         targets=len(hidden_gen.filenames),
+         matterport_frames=MP_REAL_FRAMES,
+         matterport_source=f"the scan's {len(data['depths'])} ground-masked frames repeated",
+         matterport_aggregate_ms=mp_ms,
+         matterport_aggregate_bound_ms=(MP_REAL_FRAMES + 1) * MP_GT_HW[0] * MP_GT_HW[1] * 4
+         / PEAK_BYTES * 1e3,
+         matterport_peak_gib=peak / 2**30, matterport_inputs_gib=held / 2**30)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2454,6 +3067,9 @@ def main():
             "seg_train", phase_seg_train, fail, workdir)
         bf16_sites = timed("seg_train_times", phase_seg_train_times, fail, seg_host,
                            timed_trainer)
+    with tempfile.TemporaryDirectory() as workdir:
+        gt_runs = timed("gt", phase_gt, fail, workdir)
+        timed("gt_times", phase_gt_times, fail, gt_runs, smi)
     # the FootprintNetwork's bf16 training runs the same 5 site shapes in
     # each of its 2 decoders
     emit("train_bf16_times", kernel=KERNEL["name"], route=ROUTES[torch.bfloat16],

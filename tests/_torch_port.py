@@ -1,5 +1,6 @@
 """Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py):
-layout conversion and a JAX FootprintNetwork mirrored into the port."""
+layout conversion, a JAX FootprintNetwork mirrored into the port, and the
+triplet indices the JAX RANSAC draws."""
 
 import numpy as np
 import torch
@@ -49,3 +50,13 @@ def jax_model(depth, seed=0):
     net.load_state_dict(state_dict_from_jax_params(params, state, depth),
                         strict=True)
     return jnet, params, state, net
+
+
+def jax_triplets(key, mask, n_iters=100):
+    """The [n_iters, 3] point indices that the JAX fit_plane_masked draws
+    from ``key`` over the points where ``mask`` is set, recomputed with its
+    Gumbel formula (footprints_tpu/preprocessing/ground_truth_generation/
+    ransac.py:50-53), to be fed to the port's RANSAC."""
+    gumbel = np.asarray(jax.random.gumbel(key, (n_iters, 3, mask.shape[0])))
+    logits = np.where(np.asarray(mask) > 0, 0.0, -np.inf)
+    return np.argmax(logits[None, None, :] + gumbel, axis=-1)

@@ -3,8 +3,10 @@ PyTorch version, the fused wrappers' gradients on the card (f32 and the
 bf16 route) against autograd through the plain version, the device
 prefetcher's copy, the models' GPU forward and train steps (the
 FootprintNetwork's in f32 and in bf16 with the packed heads, the
-Segmentor's in f32 and bf16) against the CPU's, and
-the batch dump's overlapped loop against its serial order.
+Segmentor's in f32 and bf16) against the CPU's,
+the batch dump's overlapped loop against its serial order, and GT
+generation's splat, median and KITTI aggregate on the GPU against the CPU
+(with TF32 off).
 
 They skip on a host without CUDA.  This file imports neither JAX nor the JAX
 package, so it also runs on a GPU host that has no JAX:
@@ -21,6 +23,8 @@ from footprints_tpu_torch.data.compact import BatchCompactor, decompact_on_devic
 from footprints_tpu_torch.eval.inference import dump_predictions, pad_batch
 from footprints_tpu_torch.models import SCALES, FootprintNetwork, Segmentor
 from footprints_tpu_torch.ops import fused_conv as fc
+from footprints_tpu_torch.preprocessing.ground_truth_generation import generator as gt_generator
+from footprints_tpu_torch.preprocessing.ground_truth_generation import geometry as gt_geometry
 from footprints_tpu_torch.preprocessing.segmentation import trainer as seg_trainer
 from footprints_tpu_torch.train import step as tstep
 
@@ -521,3 +525,63 @@ def test_footprint_bf16_step_with_packed_heads_runs_the_bf16_route(cuda_device):
         gpu, cpu = ((g[k] - v).norm().item() / max(v.norm().item(), 1e-30)
                     for g in (g16, g16_cpu))
         assert gpu <= 2 * cpu + 1e-3, (k, gpu, cpu)
+
+
+def _gt_window(n=76, h=192, w=640):
+    """A KITTI window at the real size: flat ground 1.5 m below a camera
+    moving 0.5 m per frame (both sides), box-shaped holes, poses relative to
+    the middle frame."""
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = 0.58 * w, 1.92 * h, 0.5 * w, 0.5 * h
+    ys = np.arange(h, dtype=np.float64)
+    z = np.where(ys > K[1, 2], K[1, 1] * 1.5 / np.maximum(ys - K[1, 2], 1e-3), 0)
+    z[z > 60] = 0
+    depths = np.tile(z[None, :, None], (n, 1, w)).astype(np.float32)
+    rng = np.random.RandomState(0)
+    poses = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    for i in range(n):
+        poses[i, 2, 3] = 0.5 * (i // 2 - n // 4)
+        poses[i, 0, 3] = 0.54 * (i % 2)
+        y0, x0 = rng.randint(h // 2, h - 20), rng.randint(0, w - 60)
+        depths[i, y0:y0 + 20, x0:x0 + 60] = 0
+    invK = np.linalg.pinv(K).astype(np.float32)
+    return [torch.from_numpy(a) for a in (depths, poses, np.tile(K, (n, 1, 1)),
+                                          np.tile(invK, (n, 1, 1)))]
+
+
+def test_gt_splat_and_median_on_the_gpu_equal_the_cpu(cuda_device):
+    """The scatter-min splat and the masked median, bit for bit, on the same
+    tensors (min and the sort do not depend on order)."""
+    depths, poses, K, invK = _gt_window()
+    cam = gt_geometry.project_to_camera(gt_geometry.project_to_world(depths, invK),
+                                        poses, K)
+    cpu = gt_geometry.extract_depth_from_projections(cam, 192, 640)
+    gpu = gt_geometry.extract_depth_from_projections(cam.to(cuda_device), 192, 640)
+    assert torch.equal(gpu.cpu(), cpu) and (cpu > 0).float().mean() > 0.1
+    for min_hits in (0, 2):
+        ref = gt_geometry.masked_median(cpu, min_hits=min_hits)
+        got = gt_geometry.masked_median(cpu.to(cuda_device), min_hits=min_hits)
+        assert torch.equal(got.cpu(), ref)
+
+
+def test_gt_kitti_aggregate_gpu_matches_cpu(cuda_device):
+    """At most 1e-3 of the pixels differ by more than 1e-4|ref| or in being
+    zero: the projections' dot products sum in another order on the card,
+    which flips a few floor()s."""
+    args = _gt_window()
+    ref = gt_geometry.aggregate_hidden_depth(*args, height=192, width=640)
+    got = gt_geometry.aggregate_hidden_depth(*(a.to(cuda_device) for a in args),
+                                             height=192, width=640).cpu()
+    differ = ((got - ref).abs() > 1e-4 * ref.abs()) | ((got > 0) != (ref > 0))
+    assert differ.float().mean().item() <= 1e-3 and (ref > 0).float().mean() > 0.2
+
+
+def test_gt_generator_runs_on_the_card_with_tf32_off(cuda_device, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    split = tmp_path / "split.txt"
+    split.write_text("seq0 1 l")
+    generator = gt_generator.GroundTruthGenerator(
+        gt_generator.get_options(["--textfile", str(split)]))
+    assert generator.device.type == "cuda"
+    assert generator.generator.device.type == "cuda"
+    assert torch.backends.cuda.matmul.allow_tf32 is False

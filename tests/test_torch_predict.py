@@ -116,6 +116,10 @@ _IMPORT_ALL = (
     "import footprints_tpu_torch.preprocessing.segmentation.losses\n"
     "import footprints_tpu_torch.convert.bridge, footprints_tpu_torch.convert.cli\n"
     "import footprints_tpu_torch.convert.torchvision_resnet\n"
+    "import footprints_tpu_torch.preprocessing.ground_truth_generation.generator\n"
+    "import footprints_tpu_torch.preprocessing.ground_truth_generation.data_loader\n"
+    "import footprints_tpu_torch.baselines.footprint_baseline\n"
+    "import footprints_tpu_torch.baselines.prepare_test_data\n"
     "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
     "    importlib.import_module(m.name)\n"
     "import chip_smoke\n"
