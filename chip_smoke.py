@@ -57,7 +57,7 @@ final result line:
               imgs/s and peak memory; its forward / backward / Adam split;
               the trainer's own rate over phase 7's epoch, loader
               included; at each fused site at batch 12, the kernel's output
-              and the autograd Function's gradients (x, the full weight, b,
+              and the op's registered gradients (x, the full weight, b,
               the residual) against autograd through the plain version in
               f64 on the same card tensors (output, x, residual 1e-4 +
               1e-4|ref|; weight and b, sums of 368640 or more products,
@@ -94,6 +94,29 @@ final result line:
               busy time (union of device intervals); the trainer with its
               loader (bf16) over 16 batches of 12 after an untimed first,
               and the loader alone;
+  8d. export  exports phase main's seeded FootprintNetwork-34 through
+              python -m footprints_tpu_torch.export on the card (a saved
+              torch.export program with the kernel as the custom op
+              footprints::fused_conv3x3): a bf16 batch-16 artifact served
+              over test_data/ through predict_simple --artifact (each .npy a
+              finite [4,192,640] map; 10 launches per batch, all bf16); a
+              bf16 batch-2 artifact on the card and on the CPU, each against
+              the live f32 forward on its device (per-channel MAE: the card's
+              at most twice the CPU's + 1e-3); an f32 batch-2 artifact
+              within MAE 1e-4 of the live f32 forward; a seeded Segmentor-34
+              (PSP) bf16 artifact at batch 12 through predict_simple's
+              manager (5 bf16 launches) against the live f32 Tester.forward
+              on the same frames, under the same rule.  Each export's wall
+              time, size and count of ATen calls in its graph;
+  8e. export_times  the bf16 artifact's imgs/s at batch 16 and p50 at
+              batch 1 beside the live f32 forward's (phase times' method, in
+              turns), ServingModel.call's rate on numpy, one profiled
+              artifact forward at 16 (busy share, the kernel's share of it,
+              smoke_out/profile_artifact_b16.json); the native LANCZOS
+              resize of 8 seeded 375x1242 frames to 192x640, byte for byte
+              against PIL's, ms per frame each; the KITTI trainer's loader
+              alone over phase 7's tree with FOOTPRINTS_NATIVE_RESIZE unset
+              and set;
   9. dump     writes a seeded FootprintNetwork-34 checkpoint.npz and dumps a
               synthetic KITTI test split of 26 frames (375x1242) through
               footprints_tpu_torch.main --mode inference on the GPU at
@@ -151,7 +174,7 @@ final result line:
               time with the block2 post-concat conv's share (its forward,
               and its backward, each from the union of the device
               intervals); at each fused site at batch 12, the kernel's bf16
-              route and the autograd Function's bf16 gradients against
+              route and the op's registered bf16 gradients against
               autograd through the f32 plain version on the same
               bf16-rounded tensors (output 2e-2 + 2e-2|ref|; gradients
               ||d||/||ref|| < 2e-2 and 2e-2 max|ref| + 2e-2|ref|), then
@@ -199,13 +222,16 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from footprints_tpu_torch import export as port_export
 from footprints_tpu_torch import main as port_main
+from footprints_tpu_torch import native as port_native
 from footprints_tpu_torch import predict_simple
 from footprints_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from footprints_tpu_torch.convert import segmentor_jax_params_from_state_dict
@@ -227,7 +253,8 @@ from footprints_tpu_torch.preprocessing.ground_truth_generation.processing impor
 from footprints_tpu_torch.preprocessing.segmentation import datasets as seg_datasets
 from footprints_tpu_torch.preprocessing.segmentation import main as seg_main
 from footprints_tpu_torch.preprocessing.segmentation import trainer as seg_trainer
-from footprints_tpu_torch.preprocessing.segmentation.inference import Tester
+from footprints_tpu_torch.preprocessing.segmentation.inference import (Tester,
+                                                                     load_segmentor_weights)
 from footprints_tpu_torch.preprocessing.segmentation.losses import compute_seg_losses
 from footprints_tpu_torch.preprocessing.segmentation.options import Options as SegOptions
 from footprints_tpu_torch.ops import build
@@ -286,6 +313,10 @@ SEG_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # timed dumps) after one untimed batch
 SEG_TIMED_BATCHES = 16
 CHECK_SEED = 20_000  # the seg check steps' noise batch (InMemorySegSamples)
+# export and bf16 serving: the serving batch, the CPU-leg check batch, the
+# Segmentor's dump batch; the native resize's frames
+EXPORT_BATCH, EXPORT_CHECK_BATCH, SEG_EXPORT_BATCH = 16, 2, DUMP_BATCH
+NATIVE_FRAMES = 8
 
 
 def emit(phase, **fields):
@@ -612,7 +643,51 @@ def phase_times(net):
          **totals)
     emit("times", forward="FootprintNetwork-34 serving forward ('1/1' head), f32",
          **stats)
+    emit("times", kernel=KERNEL["name"], host_us_per_call=wrapper_host_costs(),
+         input=[1, 8, 8, 16], calls=2000)
     return totals
+
+
+def host_us_per_call(fn, calls=2000):
+    """Host microseconds per call of fn after 50 warm-up calls, with no
+    synchronise inside the loop: on a tiny input the card keeps up, so this
+    reads the launch path's host cost."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def wrapper_host_costs():
+    """Host cost per call on a 1x8x8x16 input of conv_reflect_fused (the
+    model's path) under inference mode, no_grad and recording a graph, of
+    the op called through the dispatcher (a loaded program's path), and of
+    the CUDA implementation alone (the bare ctypes launch)."""
+    g = torch.Generator("cuda").manual_seed(SEED)
+    x = torch.randn(1, 8, 8, 16, device="cuda", generator=g)
+    w = torch.randn(16, 16, 3, 3, device="cuda", generator=g)
+    b = torch.randn(16, device="cuda", generator=g)
+    xg = x.clone().requires_grad_()
+    costs = {}
+    with torch.inference_mode():
+        costs["wrapper_inference_mode"] = host_us_per_call(
+            lambda: fc.conv_reflect_fused(x, w, b))
+    with torch.no_grad():
+        costs["wrapper_no_grad"] = host_us_per_call(lambda: fc.conv_reflect_fused(x, w, b))
+        costs["op_dispatched_no_grad"] = host_us_per_call(
+            lambda: fc.fused_conv3x3_op(x, w, b, None, "reflect", "elu"))
+        costs["bare_launch"] = host_us_per_call(
+            lambda: fc._launch(x, w, b, None, "reflect", "elu"))
+    costs["wrapper_recording_a_graph"] = host_us_per_call(
+        lambda: fc.conv_reflect_fused(xg, w, b))
+    costs["op_dispatched_recording_a_graph"] = host_us_per_call(
+        lambda: fc.fused_conv3x3_op(xg, w, b, None, "reflect", "elu"))
+    return costs
 
 
 def kernel_category(name):
@@ -632,21 +707,21 @@ def kernel_category(name):
     return "other"
 
 
-def phase_profile(net):
-    """Device time by kernel over 5 serving forwards at batch 16, and the
-    share of the wall time in which no kernel ran."""
+def profile_forward(forward, json_name):
+    """Device time by kernel over 5 calls of forward() at batch 16, and the
+    share of the wall time in which no kernel ran; the full table in
+    smoke_out/<json_name>.  Returns the summary."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.rand(16, HEIGHT, WIDTH, 3, device="cuda")
     with torch.inference_mode():
         for _ in range(2):
-            net(x, scales=("1/1",))
+            forward()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(5):
-                net(x, scales=("1/1",))
+                forward()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / 5
     rows = [{"name": evt.key[:120], "count": evt.count // 5,
@@ -663,8 +738,16 @@ def phase_profile(net):
                "idle_share": 1 - busy / wall_ms,
                "ms_by_category": by_category}
     os.makedirs(os.path.join(REPO, "smoke_out"), exist_ok=True)
-    with open(os.path.join(REPO, "smoke_out", "profile_b16.json"), "w") as f:
+    with open(os.path.join(REPO, "smoke_out", json_name), "w") as f:
         json.dump({**summary, "kernels": rows}, f, indent=1)
+    return summary, rows
+
+
+def phase_profile(net):
+    """Device time by kernel over 5 serving forwards at batch 16, and the
+    share of the wall time in which no kernel ran."""
+    x = torch.rand(16, HEIGHT, WIDTH, 3, device="cuda")
+    summary, rows = profile_forward(lambda: net(x, scales=("1/1",)), "profile_b16.json")
     emit("profile", **summary, top=rows[:10])
 
 
@@ -942,7 +1025,7 @@ def train_kernel_category(name):
 
 def site_backward(fail, batch):
     """At each fused site at `batch`, on the card: the kernel's output and
-    the autograd Function's gradients for x, the full weight, b and the
+    the op's registered gradients for x, the full weight, b and the
     residual, held against autograd through fused_conv3x3_plain in f64 on
     the same tensors, beside the f32 plain version's own distance to that
     reference (TF32 off); then the kernel's forward (no graph) and the
@@ -2258,7 +2341,7 @@ def tree_arrays(tree):
 
 def site_backward_bf16(fail, batch):
     """At each fused site at `batch`, on the card: the kernel's bf16 route
-    and the autograd Function's bf16 gradients (x, the full weight, b, the
+    and the op's registered bf16 gradients (x, the full weight, b, the
     residual) against autograd through the f32 plain version on the same
     bf16-rounded tensors and cotangent.  Bars: the output within 2e-2 +
     2e-2|ref| (phase sites' bf16 bar); every gradient ||d||/||ref|| < 2e-2
@@ -3020,6 +3103,266 @@ def phase_gt_times(fail, runs, smi):
          matterport_peak_gib=peak / 2**30, matterport_inputs_gib=held / 2**30)
 
 
+# --- export and bf16 serving -------------------------------------------------
+
+def export_cli(weights, out, *args):
+    """One run of python -m footprints_tpu_torch.export's main at 192x640:
+    (the artifact's metadata, the run's wall seconds)."""
+    t0 = time.perf_counter()
+    port_export.main(["--model_path", weights, "--out", out, "--height", str(HEIGHT),
+                      "--width", str(WIDTH), *args])
+    seconds = time.perf_counter() - t0
+    with open(out + ".json") as f:
+        return json.load(f), seconds
+
+
+def live_forward(net, x):
+    """The live serving forward of a FootprintNetwork: [N,4,H,W] numpy."""
+    with torch.inference_mode():
+        out = net(x, scales=("1/1",))["1/1"]
+    return out.permute(0, 3, 1, 2).float().cpu().numpy()
+
+
+def live_segmentor(net, x):
+    """The seg Tester's forward (it reads only self.net) on the live net."""
+    with torch.inference_mode():
+        return Tester.forward(types.SimpleNamespace(net=net), x).cpu().numpy()
+
+
+def channel_mae(got, ref):
+    """MAE per output channel ([N,4,H,W]) or of the whole map ([N,H,W])."""
+    got, ref = np.float32(got), np.float32(ref)
+    return np.abs(got - ref).mean(axis=(0, 2, 3) if got.ndim == 4 else None)
+
+
+def phase_export(fail, workdir):
+    """Export FootprintNetwork-34 (phase main's seeded weights) and a seeded
+    Segmentor-34 (PSP) through the export CLI on the card, and serve them:
+    (a) bf16 at batch 16 through predict_simple --artifact over test_data/;
+    (b) bf16 at batch 2 on the card and on the CPU, each against the live
+    f32 forward on its device; (c) f32 at batch 2 against the live f32
+    forward; (d) the Segmentor in bf16 at batch 12 through predict_simple's
+    manager against the live f32 Tester.forward, on the card and the CPU.
+    Returns (the artifacts' card launches, the batch-16 artifact's path,
+    the FootprintNetwork weights)."""
+    weights = os.path.join(workdir, "export_weights")
+    os.makedirs(weights)
+    net = FootprintNetwork(34, generator=torch.Generator().manual_seed(SEED))
+    torch.save(net.state_dict(), os.path.join(weights, "model.pth"))
+    seg_weights = os.path.join(workdir, "export_seg", "epoch_0.pth")
+    os.makedirs(os.path.dirname(seg_weights))
+    seg = Segmentor(34, True, generator=torch.Generator().manual_seed(SEED))
+    torch.save(seg.state_dict(), seg_weights)
+    del net, seg
+    exports = {}
+
+    def make(tag, *args, weights_path=weights):
+        out = os.path.join(workdir, f"{tag}.pt2")
+        meta, seconds = export_cli(weights_path, out, *args)
+        exports[tag] = {"seconds": seconds, "bytes": meta["bytes"],
+                        "dtype": meta["dtype"], "batch": meta["batch"],
+                        "platforms": meta["platforms"],
+                        "graph_ops": sum(n.op == "call_function" for n in
+                                         torch.export.load(out).graph.nodes)}
+        fail.check(meta["platforms"] == ["cuda", "cpu"] and meta["bytes"]
+                   == os.path.getsize(out), f"export {tag}: metadata {meta}")
+        return out
+
+    # (a) the main path: predict_simple --artifact on the card
+    a16 = make("bf16_b16", "--batch", str(EXPORT_BATCH), "--dtype", "bfloat16")
+    served = os.path.join(workdir, "served")
+    have_pil = importlib.util.find_spec("PIL") is not None
+    fused_conv3x3.launches = fused_conv3x3.bf16_launches = 0
+    if have_pil:
+        route = "predict_simple.main --artifact"
+        predict_simple.main(["--image", os.path.join(REPO, "test_data"), "--artifact", a16,
+                             "--device", "cuda", "--no_save_vis", "--save_dir", served])
+    else:
+        route = "InferenceManager(artifact=...).predict_arrays (no PIL)"
+        predict_simple.InferenceManager(
+            None, served, save_visualisations=False, artifact=a16,
+            device="cuda").predict_arrays(["arrays"], [np.random.RandomState(SEED).rand(
+                HEIGHT, WIDTH, 3).astype(np.float32)])
+    torch.cuda.synchronize()
+    launches = {"served": (fused_conv3x3.launches, fused_conv3x3.bf16_launches)}
+    files = sorted(os.listdir(os.path.join(served, "outputs")))
+    batches = -(-len(files) // EXPORT_BATCH)
+    fail.check(len(files) > 0 and launches["served"] == (LAUNCHES_PER_FORWARD * batches,) * 2,
+               f"artifact serving: {len(files)} files, (launches, bf16) "
+               f"{launches['served']} for {batches} batches")
+    for f in files:
+        pred = np.load(os.path.join(served, "outputs", f))
+        fail.check(pred.shape == (4, HEIGHT, WIDTH) and pred.dtype == np.float32
+                   and np.isfinite(pred).all(),
+                   f"artifact serving {f}: {pred.shape} {pred.dtype}")
+
+    # (b), (c): the bf16 and f32 artifacts at batch 2 against the live f32
+    # forward, on the card and (bf16) on the CPU
+    x = np.random.RandomState(SEED + 2).rand(EXPORT_CHECK_BATCH, HEIGHT, WIDTH,
+                                             3).astype(np.float32)
+    live = {}
+    for device in ("cuda", "cpu"):
+        mm = ModelManager(is_inference=True, device=device)
+        mm.load_model(weights)
+        live[device] = live_forward(mm.net, torch.from_numpy(x).to(device))
+    del mm
+    a2 = make("bf16_b2", "--batch", str(EXPORT_CHECK_BATCH), "--dtype", "bfloat16")
+    gaps = {}
+    for device in ("cuda", "cpu"):
+        fused_conv3x3.launches = fused_conv3x3.bf16_launches = 0
+        got = port_export.load_serving(a2, device=device).call(x)
+        sync(device)
+        launches[f"bf16_b2_{device}"] = (fused_conv3x3.launches, fused_conv3x3.bf16_launches)
+        fail.check(np.isfinite(got).all() and got.shape == (EXPORT_CHECK_BATCH, 4, HEIGHT,
+                                                            WIDTH), f"bf16 b2 on {device}")
+        gaps[device] = channel_mae(got, live[device])
+    fail.check(launches["bf16_b2_cuda"] == (LAUNCHES_PER_FORWARD,) * 2
+               and launches["bf16_b2_cpu"] == (0, 0), f"bf16 b2 launches {launches}")
+    fail.check(bool((gaps["cuda"] <= 2 * gaps["cpu"] + 1e-3).all()),
+               f"bf16 artifact on the card vs f32 live MAE per channel {gaps['cuda']}, "
+               f"on the CPU {gaps['cpu']}: more than twice the CPU's + 1e-3")
+    a32 = make("f32_b2", "--batch", str(EXPORT_CHECK_BATCH), "--dtype", "float32")
+    fused_conv3x3.launches = fused_conv3x3.bf16_launches = 0
+    f32_mae = float(channel_mae(port_export.load_serving(a32).call(x), live["cuda"]).mean())
+    torch.cuda.synchronize()
+    launches["f32_b2_cuda"] = (fused_conv3x3.launches, fused_conv3x3.bf16_launches)
+    fail.check(f32_mae < 1e-4 and launches["f32_b2_cuda"] == (LAUNCHES_PER_FORWARD, 0),
+               f"f32 artifact vs live f32 forward MAE {f32_mae}, launches "
+               f"{launches['f32_b2_cuda']}")
+
+    # (d) the Segmentor artifact through predict_simple's manager
+    aseg = make("seg_bf16_b12", "--batch", str(SEG_EXPORT_BATCH), "--dtype", "bfloat16",
+                "--network", "segmentor", weights_path=seg_weights)
+    frames = np.random.RandomState(SEED + 3).rand(SEG_EXPORT_BATCH, HEIGHT, WIDTH,
+                                                  3).astype(np.float32)
+    fused_conv3x3.launches = fused_conv3x3.bf16_launches = 0
+    manager = predict_simple.InferenceManager(None, os.path.join(workdir, "served_seg"),
+                                              save_visualisations=False, artifact=aseg,
+                                              device="cuda")
+    seg_card = manager.predict_arrays([f"frame{i}" for i in range(len(frames))], frames)
+    torch.cuda.synchronize()
+    launches["seg_served"] = (fused_conv3x3.launches, fused_conv3x3.bf16_launches)
+    fail.check(launches["seg_served"] == (SEG_LAUNCHES_PER_FORWARD,) * 2
+               and seg_card.shape == (SEG_EXPORT_BATCH, HEIGHT, WIDTH)
+               and seg_card.dtype == np.float16 and np.isfinite(seg_card).all(),
+               f"Segmentor artifact: {seg_card.shape} {seg_card.dtype}, launches "
+               f"{launches['seg_served']}")
+    seg_cpu = port_export.load_serving(aseg, device="cpu").call(frames)
+    seg_gaps = {}
+    for device, got in (("cuda", seg_card), ("cpu", seg_cpu)):
+        live_net = Segmentor(34, True, device=device).eval()
+        load_segmentor_weights(live_net, seg_weights)
+        seg_gaps[device] = float(channel_mae(
+            got, live_segmentor(live_net, torch.from_numpy(frames).to(device))))
+    del live_net
+    fail.check(seg_gaps["cuda"] <= 2 * seg_gaps["cpu"] + 1e-3,
+               f"Segmentor bf16 artifact vs live f32 Tester.forward MAE {seg_gaps}")
+    emit("export", route=route, exports=exports, served_files=len(files),
+         launches_and_bf16_launches=launches,
+         bf16_b2_mae_per_channel={k: v.tolist() for k, v in gaps.items()},
+         bar="card <= 2 x CPU + 1e-3 per channel", f32_b2_mae=f32_mae, f32_bar=1e-4,
+         segmentor_bf16_mae=seg_gaps)
+    card = [v for k, v in launches.items() if not k.endswith("_cpu")]
+    return sum(n for n, _ in card), a16, weights
+
+
+def phase_export_times(fail, workdir, a16, weights, run):
+    """The bf16 artifact's serving rate at batch 16 and p50 at batch 1 beside
+    the live f32 forward's (phase times' method, in turns); one profiled
+    artifact forward at 16; the native LANCZOS resize against PIL's on
+    KITTI frames; the KITTI trainer's loader alone with and without
+    FOOTPRINTS_NATIVE_RESIZE."""
+    a1 = os.path.join(workdir, "bf16_b1.pt2")
+    export_cli(weights, a1, "--batch", "1", "--dtype", "bfloat16")
+    mm = ModelManager(is_inference=True, device="cuda")
+    mm.load_model(weights)
+    forwards = {}
+    for batch, path in ((EXPORT_BATCH, a16), (1, a1)):
+        x = torch.rand(batch, HEIGHT, WIDTH, 3, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(batch))
+        art = port_export.load_serving(path).module
+        forwards[batch] = {"f32_live": lambda x=x: mm.net(x, scales=("1/1",)),
+                           "bf16_artifact": lambda x=x, art=art: art(x)}
+    rows = {}
+    with torch.inference_mode():
+        for name in ("f32_live", "bf16_artifact", "bf16_artifact", "f32_live"):
+            ms = time_ms(forwards[EXPORT_BATCH][name], iters=10)
+            rows.setdefault(name, {}).setdefault("imgs_per_s_b16", []).append(
+                EXPORT_BATCH / (ms * 1e-3))
+            forward = forwards[1][name]
+            for _ in range(3):
+                forward()
+            lat = []
+            for _ in range(30):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                forward()
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            rows[name].setdefault("p50_ms_b1", []).append(statistics.median(lat))
+    # the user's call: numpy in, numpy out, host clock
+    serving = port_export.load_serving(a16)
+    images = np.random.RandomState(SEED).rand(EXPORT_BATCH, HEIGHT, WIDTH,
+                                              3).astype(np.float32)
+    serving.call(images)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        serving.call(images)
+    call_rate = 5 * EXPORT_BATCH / (time.perf_counter() - t0)
+    emit("export_times", model="FootprintNetwork-34, 192x640", forwards=rows,
+         bf16_artifact_call_imgs_per_s_b16=call_rate,
+         method="imgs/s: 10 calls on a card tensor (CUDA events); p50: 30 host-clock "
+                "batch-1 calls ending in a synchronise; in turns live, artifact, "
+                "artifact, live; call: ServingModel.call on numpy, 5 calls")
+    x16 = torch.rand(EXPORT_BATCH, HEIGHT, WIDTH, 3, device="cuda")
+    summary, top = profile_forward(lambda: serving.module(x16), "profile_artifact_b16.json")
+    emit("export_times", profile="bf16 artifact forward, batch 16", **summary,
+         busy_share=1 - summary["idle_share"],
+         kernel_share_of_busy=summary["ms_by_category"].get("fused_conv3x3", 0.0)
+         / summary["kernel_ms_per_forward"], top=top[:10])
+    del mm, serving, forwards
+
+    # the native LANCZOS resize against PIL's, byte for byte
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED)
+    raw = [smooth_frame(rng, KITTI_RAW_HW) for _ in range(NATIVE_FRAMES)]
+    port_native.load_library()  # built before the timing
+    same = [np.array_equal(port_native.resize_lanczos(a, HEIGHT, WIDTH),
+                           np.asarray(Image.fromarray(a).resize((WIDTH, HEIGHT),
+                                                                Image.LANCZOS)))
+            for a in raw]
+    fail.check(all(same), f"native LANCZOS vs PIL, byte for byte: {same}")
+    resize_ms = {}
+    for name, fn in (("pil", lambda a: Image.fromarray(a).resize((WIDTH, HEIGHT), Image.LANCZOS)),
+                     ("native", lambda a: port_native.resize_lanczos(a, HEIGHT, WIDTH))):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for a in raw:
+                fn(a)
+        resize_ms[name] = (time.perf_counter() - t0) * 1e3 / (3 * NATIVE_FRAMES)
+    rates = {}
+    if run["real"]:
+        # the trainer's own training loader (TrainManager.create_dataloaders)
+        opt = Options().parse(run["argv"] + ["--split_root",
+                                             run["splits"][TRAIN_TIMED_BATCHES + 1]])
+        loader, _ = TrainManager.create_dataloaders(types.SimpleNamespace(opt=opt))
+        rates["workers"] = opt.num_workers
+        for setting in ("unset", "1"):
+            if setting == "1":
+                os.environ["FOOTPRINTS_NATIVE_RESIZE"] = "1"
+            try:
+                rates[setting] = loader_rate(loader)
+            finally:
+                os.environ.pop("FOOTPRINTS_NATIVE_RESIZE", None)
+    emit("export_times", native_resize=f"{KITTI_RAW_HW[0]}x{KITTI_RAW_HW[1]} -> "
+         f"{HEIGHT}x{WIDTH} LANCZOS, uint8 RGB", frames=NATIVE_FRAMES,
+         byte_exact_vs_pil=all(same), ms_per_frame=resize_ms,
+         loader_alone_imgs_per_s_by_FOOTPRINTS_NATIVE_RESIZE=rates or
+         "not measured (no PIL/OpenCV/PyYAML: no KITTI tree)",
+         loader=f"{TRAIN_TIMED_BATCHES} batches of {TRAIN_BATCH} after an untimed first")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3059,6 +3402,8 @@ def main():
         timed("train_times", phase_train_times, fail, host, epoch)
         train_launches += timed("train_bf16", phase_train_bf16, fail, run, workdir)
         timed("train_bf16_times", phase_train_bf16_times, fail, host, run)
+        export_launches, a16, export_weights = timed("export", phase_export, fail, workdir)
+        timed("export_times", phase_export_times, fail, workdir, a16, export_weights, run)
     with tempfile.TemporaryDirectory() as workdir:
         dump_launches = timed("dump", phase_dump, fail, workdir)
         seg_launches = timed("seg_dump", phase_seg_dump, fail, workdir)
@@ -3077,7 +3422,8 @@ def main():
          forward_ms_per_step=2 * bf16_sites["forward_ms_per_step"],
          backward_ms_per_step=2 * bf16_sites["backward_ms_per_step"],
          source="phase seg_train_times' per-site bf16 times at batch 12, x2 decoders")
-    launches += train_launches + dump_launches + seg_launches + seg_train_launches
+    launches += (train_launches + export_launches + dump_launches + seg_launches
+                 + seg_train_launches)
     emit("seconds", **seconds)
 
     if fail:

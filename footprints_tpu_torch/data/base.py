@@ -1,7 +1,8 @@
 """Base training dataset: per-sample loading and preprocessing on the host,
 numpy only (counterpart of footprints_tpu/data/base.py).
 
-  * images load with PIL and resize with LANCZOS to (width, height);
+  * images load with PIL and resize with LANCZOS to (width, height), in
+    the native resampler with FOOTPRINTS_NATIVE_RESIZE=1;
   * npy targets resize with cv2 (INTER_NEAREST or INTER_AREA per target),
     with an optional horizontal flip and disparity rescale by width ratio;
   * at train time each sample draws a 50% h-flip and a 50% colour jitter
@@ -13,6 +14,8 @@ numpy only (counterpart of footprints_tpu/data/base.py).
 Samples are dicts of float32 arrays; the image is [H,W,3] in [0,1].  PIL
 and cv2 are imported where they are used.
 """
+
+import os
 
 import numpy as np
 
@@ -40,9 +43,22 @@ class FootprintsDataset:
     # -- shared loading helpers ------------------------------------------------
 
     def load_and_resize_image(self, path, do_flip, method=None):
-        """``method``: a PIL resampling filter, LANCZOS by default."""
+        """``method``: a PIL resampling filter, LANCZOS by default.
+
+        With ``FOOTPRINTS_NATIVE_RESIZE=1`` the LANCZOS resize runs in the
+        native resampler (native/fp_image.cpp, equal to PIL's byte for
+        byte); PIL still decodes and flips.  Where that library cannot be
+        built or loaded this raises, where the JAX package uses PIL."""
         from PIL import Image
 
+        if method is None and os.environ.get("FOOTPRINTS_NATIVE_RESIZE") == "1":
+            from .. import native
+
+            arr = np.asarray(Image.open(path).convert("RGB"))
+            image = Image.fromarray(native.resize_lanczos(arr, self.height, self.width))
+            if do_flip:
+                image = image.transpose(method=Image.FLIP_LEFT_RIGHT)
+            return image
         image = Image.open(path).resize(
             (self.width, self.height),
             resample=Image.LANCZOS if method is None else method)

@@ -30,8 +30,13 @@ def batch_norm(x, weight, bias, running_mean, running_var, eps=1e-5, *,
 
     A bf16 ``x`` (mixed precision: bf16 weight and bias, f32 running
     statistics) is normalised in f32, with the statistics computed and
-    updated in f32, and returned in bf16, as the JAX function does."""
+    updated in f32, and returned in bf16, as the JAX function does.  In eval
+    mode the running statistics may be bf16 too (the bf16 serving forward
+    casts them, as footprints_tpu/export.py does): x is normalised in f32
+    from those bf16-rounded values."""
     if x.dtype == torch.bfloat16:
+        if not training:
+            running_mean, running_var = running_mean.float(), running_var.float()
         return F.batch_norm(x.float(), running_mean, running_var, weight.float(),
                             bias.float(), training=training, momentum=momentum,
                             eps=eps).to(x.dtype)

@@ -5,7 +5,8 @@ The library is built at first use into ``footprints_tpu_torch/_build/`` and
 rebuilt when the sources or flags change (the file name carries their
 hash).  The sources include no PyTorch header, so a build takes seconds.
 Pointers and the stream cross as ``c_void_p``; each launch function returns
-``cudaGetLastError()``.
+``cudaGetLastError()``.  ``hashed_path`` and ``compile_shared`` also build
+the host-side resampler of ``native/`` (``footprints_tpu_torch/native``).
 """
 
 import ctypes
@@ -36,31 +37,34 @@ def nvcc_path():
                        "the CUDA kernels are built at first use")
 
 
-def library_path():
+def hashed_path(build_dir, stem, flags, sources):
+    """``<build_dir>/<stem>_<hash>.so``: the name carries the hash of the
+    sources and the flags, so a changed source or flag builds anew."""
     digest = hashlib.sha256()
-    for src in SOURCES:
-        digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"footprints_kernels_{digest.hexdigest()[:16]}.so"
+    for src in sources:
+        digest.update(Path(src).read_bytes())
+    digest.update(" ".join(flags).encode())
+    return Path(build_dir) / f"{stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build(verbose=False):
-    """Compile the sources unless the library for their hash exists.
-    Returns the library's path."""
-    out = library_path()
+def compile_shared(compiler, flags, sources, out, verbose=False):
+    """Compile ``sources`` with ``flags`` into the shared library ``out``
+    unless it exists; returns ``out``.  ``compiler()`` gives the compiler's
+    path and is called only when a build is needed.  Raises with the
+    compiler's output if it fails."""
+    out = Path(out)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     # compile to a private name, then rename: a concurrent build never
     # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, SOURCES)]
+    cmd = [compiler(), *flags, "-o", tmp, *map(str, sources)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         if verbose:
             print(proc.stdout + proc.stderr)
@@ -69,6 +73,18 @@ def build(verbose=False):
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def library_path():
+    return hashed_path(BUILD_DIR, "footprints_kernels", NVCC_FLAGS, SOURCES)
+
+
+def build(verbose=False):
+    """Compile the sources unless the library for their hash exists.
+    Returns the library's path.  ``verbose`` adds ``-Xptxas -v`` (registers
+    and spills per instantiation) and prints the compiler's output."""
+    return compile_shared(nvcc_path, NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ()),
+                          SOURCES, library_path(), verbose)
 
 
 @functools.cache

@@ -31,11 +31,16 @@ phases as a 2x2 conv on the edge-padded low-res input with phase-summed
 weights; ``up2_phase_weights`` and ``up2_phase_conv_plain`` are the plain
 PyTorch spec of that identity (no path calls them).
 
+The kernel is a registered custom op, ``footprints::fused_conv3x3``
+(``fused_conv3x3_op``), so ``torch.export`` carries it into a serving
+program (export.py): its CUDA implementation launches the kernel, its CPU
+implementation is the plain version, and its fake implementation gives the
+output's shape to a trace.  The launch counters count at run time only.
+
 Gradients: ``fused_conv3x3`` itself records no autograd graph.  The three
 model-facing wrappers (``up_conv_fused``, ``conv_reflect_fused``,
-``conv_reflect_res_fused``) go through one ``torch.autograd.Function``,
-``FusedConv3x3Fn``, the counterpart of the JAX package's ``custom_vjp``s
-(pallas_conv.py:208-276):
+``conv_reflect_res_fused``) call the op, whose registered autograd is the
+counterpart of the JAX package's ``custom_vjp``s (pallas_conv.py:208-276):
 the forward is the kernel (the plain version on a CPU tensor), the backward
 is the VJP of the plain composition, as there: cuDNN's dgrad and wgrad
 (``aten.convolution_backward``) on the padded input, then the adjoints of
@@ -45,8 +50,8 @@ since the TPU kernel has none either.
 """
 
 import ctypes
-
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from ..nn.layers import conv2d, elu, reflect_pad, upsample_nearest
 
@@ -96,6 +101,9 @@ def up2_phase_conv_plain(x, w, b=None):
 
 
 def _check(x, w, b, residual, pad_mode, act):
+    """Raise on what the kernel does not take; returns the sizes.  Reads
+    only shapes, strides, dtypes and devices, so it also runs on the fake
+    tensors of a trace."""
     if pad_mode not in PAD_MODES:
         raise ValueError(f"pad_mode must be one of {PAD_MODES}, got {pad_mode!r}")
     if act not in ACTS:
@@ -131,21 +139,51 @@ def _check(x, w, b, residual, pad_mode, act):
         if t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; x is "
                              f"{x.dtype} on {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for _, t, _ in named + [("x", x, None), ("w", w, None)]):
-        raise RuntimeError("fused_conv3x3 records no autograd graph; "
-                           "differentiate through up_conv_fused, "
-                           "conv_reflect_fused or conv_reflect_res_fused")
     return n, h, w_, ci, ho, wo, co
 
 
 def fused_conv3x3(x, w, b=None, residual=None, *, pad_mode, act):
-    """act(conv3x3(pad(x), w) + b [+ residual]), NHWC; see the module doc."""
+    """act(conv3x3(pad(x), w) + b [+ residual]), NHWC; see the module doc.
+    Records no autograd graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b, residual)):
+        raise RuntimeError("fused_conv3x3 records no autograd graph; "
+                           "differentiate through up_conv_fused, "
+                           "conv_reflect_fused or conv_reflect_res_fused")
+    return _forward(x, w, b, residual, pad_mode, act)
+
+
+fused_conv3x3.launches = 0
+fused_conv3x3.bf16_launches = 0  # of them, launches of the bf16 route
+
+
+# The op that torch.export carries (footprints::fused_conv3x3).  Importing
+# this module registers it; a saved program that calls it loads only after
+# that import.  It is defined through torch.library's low-level API, not
+# torch.library.custom_op, whose generated autograd layer sends every call
+# through the dispatcher into Python twice.  On real tensors the wrappers
+# and the op's Autograd kernel call the device implementation directly, so
+# an eager training step pays no dispatch at its launches (chip_smoke.py's
+# phase times reads the host cost per call beside the bare launch's); a
+# trace (fake or functional tensors, or a dispatch mode) goes through the
+# op and reaches its fake implementation.  needs_exact_strides: block4's
+# weight halves reach it as input-channel slice views, which the kernel
+# reads through their strides.
+_LIB = torch.library.Library("footprints", "DEF")
+_LIB.define("fused_conv3x3(Tensor x, Tensor w, Tensor? b, Tensor? residual, "
+            "str pad_mode, str act) -> Tensor", tags=(torch.Tag.needs_exact_strides,))
+fused_conv3x3_op = torch.ops.footprints.fused_conv3x3.default
+
+
+def _plain(x, w, b, residual, pad_mode, act):
+    """The CPU implementation: the plain version."""
+    _check(x, w, b, residual, pad_mode, act)
+    return fused_conv3x3_plain(x, w, b, residual, pad_mode=pad_mode, act=act)
+
+
+def _launch(x, w, b, residual, pad_mode, act):
+    """The CUDA implementation: one launch of the kernel, or a raise."""
     n, h, w_, ci, ho, wo, co = _check(x, w, b, residual, pad_mode, act)
-    if x.device.type == "cpu":
-        return fused_conv3x3_plain(x, w, b, residual, pad_mode=pad_mode, act=act)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_conv3x3 runs on cuda or cpu, not {x.device}")
     from .build import load_library
 
     lib = load_library()
@@ -165,18 +203,29 @@ def fused_conv3x3(x, w, b=None, residual=None, *, pad_mode, act):
     return y
 
 
-fused_conv3x3.launches = 0
-fused_conv3x3.bf16_launches = 0  # of them, launches of the bf16 route
+def _fake(x, w, b, residual, pad_mode, act):
+    """The output's shape and type, for tracing; counts nothing."""
+    n, _, _, _, ho, wo, co = _check(x, w, b, residual, pad_mode, act)
+    return x.new_empty((n, ho, wo, co))
 
 
-class FusedConv3x3Fn(torch.autograd.Function):
-    """fused_conv3x3 with its gradient: the counterpart of the custom_vjps
-    up_conv_s2d_fused, s2d_conv_fused and s2d_conv_res_fused
-    (footprints_tpu/ops/pallas_conv.py:209, :231, :253)."""
+def _forward(x, w, b, residual, pad_mode, act):
+    """The op's forward below autograd: the device implementation itself on
+    real tensors, the dispatched op (its fake implementation) in a trace."""
+    if (type(x) is torch.Tensor and not torch._is_functional_tensor(x)
+            and _get_current_dispatch_mode() is None):
+        return (_launch if x.is_cuda else _plain)(x, w, b, residual, pad_mode, act)
+    with torch._C._AutoDispatchBelowAutograd():
+        return fused_conv3x3_op(x, w, b, residual, pad_mode, act)
+
+
+class _FusedConv3x3(torch.autograd.Function):
+    """The op's autograd: forward through the device implementation, the
+    VJP of the plain composition backward."""
 
     @staticmethod
     def forward(ctx, x, w, b, residual, pad_mode, act):
-        y = fused_conv3x3(x, w, b, residual, pad_mode=pad_mode, act=act)
+        y = _forward(x, w, b, residual, pad_mode, act)
         ctx.pad_mode = pad_mode
         ctx.save_for_backward(x, w, y if act == "elu" else None)
         return y
@@ -208,20 +257,35 @@ class FusedConv3x3Fn(torch.autograd.Function):
         return gx, gw, gb, gz if need_r else None, None, None
 
 
+def _fused(x, w, b, residual, pad_mode, act):
+    """The op's Autograd kernel, and the wrappers' entry: records the
+    Function only where a gradient is wanted."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b, residual)):
+        return _FusedConv3x3.apply(x, w, b, residual, pad_mode, act)
+    return _forward(x, w, b, residual, pad_mode, act)
+
+
+_LIB.impl("fused_conv3x3", _plain, "CPU")
+_LIB.impl("fused_conv3x3", _launch, "CUDA")
+_LIB.impl("fused_conv3x3", _fused, "Autograd")
+torch.library.register_fake("footprints::fused_conv3x3", _fake, lib=_LIB)
+
+
 # The three wrappers mirror the JAX package's one for one
 # (footprints_tpu/ops/pallas_conv.py: up_conv_s2d_fused, s2d_conv_res_fused,
 # s2d_conv_fused), in plain full-resolution NHWC instead of s2d layout.
 
 def up_conv_fused(x, w, b, act="elu"):
     """act(conv3x3(reflect_pad(nearest_up_2x(x))) + b): [N,H,W,C] -> [N,2H,2W,Co]."""
-    return FusedConv3x3Fn.apply(x, w, b, None, "up2_reflect", act)
+    return _fused(x, w, b, None, "up2_reflect", act)
 
 
 def conv_reflect_fused(x, w, b, act="elu"):
     """act(conv3x3(reflect_pad(x)) + b)."""
-    return FusedConv3x3Fn.apply(x, w, b, None, "reflect", act)
+    return _fused(x, w, b, None, "reflect", act)
 
 
 def conv_reflect_res_fused(x, w, b, residual, act="elu"):
     """act(conv3x3(reflect_pad(x)) + b + residual) (block4 post conv1)."""
-    return FusedConv3x3Fn.apply(x, w, b, residual, "reflect", act)
+    return _fused(x, w, b, residual, "reflect", act)

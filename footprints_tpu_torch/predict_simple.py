@@ -5,8 +5,10 @@ Same flags and artifacts as the JAX CLI and the reference:
 ``<save_dir>/visualisations/<name>.jpg``, including the reference's quirk of
 thresholding the hidden-ground channel at 0.5 on RAW LOGITS (pass
 ``--apply_sigmoid`` for probabilities).  Folder prediction runs in padded
-batches of 4.  ``--device {cuda,cpu}`` picks the device (default cuda; it
-raises when CUDA is absent).  f32 runs with TF32 off.
+batches of 4.  ``--artifact`` serves from an exported artifact
+(export.py) in its traced batch and resolution instead of a checkpoint.
+``--device {cuda,cpu}`` picks the device (default cuda; it raises when
+CUDA is absent).  f32 runs with TF32 off.
 
 Usage:
   python -m footprints_tpu_torch.predict_simple --image test_data/cyclist.jpg \
@@ -37,10 +39,22 @@ class InferenceManager:
                  model_load_folder=None, height=None, width=None,
                  apply_sigmoid=False, batch_size=4, artifact=None,
                  device="cuda"):
+        self._serving = None
         if artifact is not None:
-            raise NotImplementedError(
-                "--artifact serving is not ported yet; it arrives with the "
-                "export and convert slice")
+            self._load_artifact(artifact, device, height, width,
+                                apply_sigmoid or save_visualisations)
+        else:
+            self._load_model(model_name, model_load_folder, device, height, width)
+            self.batch_size = batch_size
+        self.apply_sigmoid = apply_sigmoid
+
+        self.save_dir = save_dir
+        os.makedirs(os.path.join(save_dir, "outputs"), exist_ok=True)
+        self.save_visualisations = save_visualisations
+        if save_visualisations:
+            os.makedirs(os.path.join(save_dir, "visualisations"), exist_ok=True)
+
+    def _load_model(self, model_name, model_load_folder, device, height, width):
         if model_load_folder is None:
             if model_name is None:
                 raise ValueError(
@@ -60,14 +74,26 @@ class InferenceManager:
             else:
                 height, width = MODEL_HEIGHT_WIDTH[model_name]
         self.height, self.width = height, width
-        self.apply_sigmoid = apply_sigmoid
-        self.batch_size = batch_size
 
-        self.save_dir = save_dir
-        os.makedirs(os.path.join(save_dir, "outputs"), exist_ok=True)
-        self.save_visualisations = save_visualisations
-        if save_visualisations:
-            os.makedirs(os.path.join(save_dir, "visualisations"), exist_ok=True)
+    def _load_artifact(self, artifact, device, height, width, four_channel_options):
+        """Serve from an exported artifact (export.py): no checkpoint or
+        model code; resolution and batch come from the artifact.  A
+        Segmentor artifact saves its [H,W] float16 ground map, and takes
+        neither --apply_sigmoid nor visualisations."""
+        from .export import load_serving
+
+        self._serving = load_serving(artifact, device)
+        if height is not None and (height, width) != (self._serving.height,
+                                                      self._serving.width):
+            raise ValueError(
+                f"--height/--width {height}x{width} conflict with the "
+                f"artifact's traced {self._serving.height}x{self._serving.width}")
+        if self._serving.meta.get("model") == "Segmentor" and four_channel_options:
+            raise ValueError("a Segmentor artifact's output is a ground "
+                             "probability: pass --no_save_vis and no --apply_sigmoid")
+        self.height, self.width = self._serving.height, self._serving.width
+        self.batch_size = self._serving.batch
+        self.device = self._serving.device
 
     def _forward(self, batch):
         """[B,H,W,3] numpy -> [B,4,H,W] numpy of the '1/1' scale."""
@@ -86,9 +112,12 @@ class InferenceManager:
 
     def _predict_batch(self, arrs):
         """arrs: list of [H,W,3] -> [B,4,H,W] numpy (channels-first)."""
-        batch = np.zeros((self.batch_size, self.height, self.width, 3), np.float32)
-        batch[: len(arrs)] = np.stack(arrs)
-        preds = self._forward(batch)[: len(arrs)]
+        if self._serving is not None:
+            preds = self._serving.call(np.stack(arrs))
+        else:
+            batch = np.zeros((self.batch_size, self.height, self.width, 3), np.float32)
+            batch[: len(arrs)] = np.stack(arrs)
+            preds = self._forward(batch)[: len(arrs)]
         if self.apply_sigmoid:
             preds[:, :2] = 1.0 / (1.0 + np.exp(-preds[:, :2]))
         return preds
@@ -167,7 +196,9 @@ def parse_args(argv=None):
                         help="directory with model.pth or checkpoint.npz "
                              "(overrides --model download)")
     parser.add_argument("--artifact", type=str, default=None,
-                        help="serve from an exported artifact (not ported yet)")
+                        help="serve from an exported artifact (python -m "
+                             "footprints_tpu_torch.export), loaded on --device; "
+                             "resolution and batch come from the artifact")
     parser.add_argument("--height", type=int, default=None)
     parser.add_argument("--width", type=int, default=None)
     parser.add_argument("--no_save_vis", action="store_true",

@@ -1,5 +1,6 @@
 """Tests of the port that need the card: the CUDA kernel against its plain
-PyTorch version, the fused wrappers' gradients on the card (f32 and the
+PyTorch version, opcheck on its custom op, a bf16 serving artifact on the
+card against the CPU, the fused wrappers' gradients on the card (f32 and the
 bf16 route) against autograd through the plain version, the device
 prefetcher's copy, the models' GPU forward and train steps (the
 FootprintNetwork's in f32 and in bf16 with the packed heads, the
@@ -149,6 +150,57 @@ def test_kernel_without_bias_or_residual(cuda_device):
         got = fc.fused_conv3x3(x, w, pad_mode="up2_reflect", act="none")
         ref = fc.fused_conv3x3_plain(x, w, pad_mode="up2_reflect", act="none")
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode", ["reflect", "up2_reflect"])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_opcheck_cuda(cuda_device, dtype, pad_mode, with_res):
+    """torch.library.opcheck on the op's CUDA implementation: schema, fake
+    implementation, registered autograd and its use under tracing.  The
+    check runs the backward twice (eager and traced), and the reflect pad's
+    adjoint adds with atomics, in another order each run: in bf16 that moves
+    a gradient by its rounding, so bf16 is compared at the bf16 bar of the
+    fused sites (2e-2), f32 at opcheck's defaults."""
+    x, w, b, r = (t.requires_grad_() for t in _case(cuda_device, pad_mode, (6, 10),
+                                                    16, 8, dtype))
+    tol = {"rtol": 2e-2, "atol": 2e-2} if dtype == torch.bfloat16 else {}
+    torch.library.opcheck(fc.fused_conv3x3_op,
+                          (x, w, b, r if with_res else None, pad_mode, "elu"), **tol)
+
+
+def _live_forward(net, x):
+    with torch.no_grad():
+        out = net(x, scales=("1/1",))["1/1"]
+    return out.permute(0, 3, 1, 2).float().cpu().numpy()
+
+
+def test_bf16_artifact_on_the_card(cuda_device, tmp_path):
+    """A bf16 artifact exported on the card runs the kernel's bf16 route 10
+    times a batch there, and also loads on the CPU; its per-channel MAE
+    against the live f32 forward on the card is at most twice the CPU's
+    + 1e-3."""
+    from footprints_tpu_torch import export
+
+    net = FootprintNetwork(34, generator=torch.Generator().manual_seed(5)).eval()
+    torch.save(net.state_dict(), str(tmp_path / "model.pth"))
+    out = str(tmp_path / "model.pt2")
+    meta = export.export_serving(str(tmp_path), out, height=64, width=128, batch=2)
+    assert meta["platforms"] == ["cuda", "cpu"] and meta["dtype"] == "bfloat16"
+    x = np.random.RandomState(0).rand(3, 64, 128, 3).astype(np.float32)
+    card = export.load_serving(out)
+    before = (fc.fused_conv3x3.launches, fc.fused_conv3x3.bf16_launches)
+    got = card.call(x)
+    torch.cuda.synchronize()
+    assert (fc.fused_conv3x3.launches - before[0],
+            fc.fused_conv3x3.bf16_launches - before[1]) == (20, 20)  # 2 batches
+    cpu = export.load_serving(out, device="cpu").call(x)
+    ref_card = _live_forward(net.to(cuda_device), torch.from_numpy(x).to(cuda_device))
+    ref_cpu = _live_forward(net.cpu(), torch.from_numpy(x))
+    gap_card = np.abs(got - ref_card).mean(axis=(0, 2, 3))
+    gap_cpu = np.abs(cpu - ref_cpu).mean(axis=(0, 2, 3))
+    assert np.isfinite(got).all() and (gap_cpu > 0).all()
+    assert (gap_card <= 2 * gap_cpu + 1e-3).all(), (gap_card, gap_cpu)
 
 
 def test_model_gpu_forward_matches_cpu(cuda_device):

@@ -1,5 +1,5 @@
-"""Gradients of the port's three fused-conv wrappers (one autograd Function
-in footprints_tpu_torch/ops/fused_conv.py) held against the JAX package's
+"""Gradients of the port's three fused-conv wrappers (the registered
+autograd of the custom op in footprints_tpu_torch/ops/fused_conv.py) held against the JAX package's
 custom_vjp wrappers (ops/pallas_conv.py: up_conv_s2d_fused, s2d_conv_fused,
 s2d_conv_res_fused; Pallas forward in interpret mode, XLA backward), and
 against autograd through the port's plain version.

@@ -56,6 +56,23 @@ def test_batch_norm_eval():
     np.testing.assert_allclose(nhwc(got), np.asarray(ref), atol=ATOL)
 
 
+def test_batch_norm_eval_with_bf16_statistics():
+    """The bf16 serving forward casts the BN statistics to bf16 as the JAX
+    one does (footprints_tpu/export.py): eval mode normalises in f32 from
+    the bf16-rounded statistics, and returns bf16."""
+    x = torch.from_numpy(_rand(5, 2, 8, 5, 6)).to(torch.bfloat16)
+    rng = np.random.RandomState(6)
+    w, b, mean = (torch.from_numpy(a).to(torch.bfloat16) for a in (
+        rng.rand(8).astype(np.float32) + 0.5, rng.randn(8).astype(np.float32),
+        rng.randn(8).astype(np.float32)))
+    var = torch.from_numpy(rng.rand(8).astype(np.float32) + 0.1).to(torch.bfloat16)
+    got = tl.batch_norm(x, w, b, mean, var)
+    assert got.dtype == torch.bfloat16
+    ref = torch.nn.functional.batch_norm(x.float(), mean.float(), var.float(), w.float(),
+                                         b.float(), training=False, eps=1e-5)
+    torch.testing.assert_close(got, ref.to(torch.bfloat16), atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("pad,hw", [(1, (4, 5)), (1, (2, 2)), (2, (5, 7))])
 def test_reflect_pad(pad, hw):
     x = _rand(5, 2, *hw, 3)

@@ -87,12 +87,6 @@ def test_default_device_is_cuda_and_raises_without_it(weights, tmp_path):
         ModelManager()
 
 
-def test_artifact_is_not_ported_yet(weights, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        predict_simple.main(["--image", CYCLIST, "--artifact", "x",
-                             "--device", "cpu", "--save_dir", str(tmp_path)])
-
-
 def test_select_device_turns_tf32_off(monkeypatch):
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
@@ -120,6 +114,7 @@ _IMPORT_ALL = (
     "import footprints_tpu_torch.preprocessing.ground_truth_generation.data_loader\n"
     "import footprints_tpu_torch.baselines.footprint_baseline\n"
     "import footprints_tpu_torch.baselines.prepare_test_data\n"
+    "import footprints_tpu_torch.export, footprints_tpu_torch.native\n"
     "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
     "    importlib.import_module(m.name)\n"
     "import chip_smoke\n"

@@ -35,7 +35,7 @@ Tolerances:
     the worst leaf's ratio 1.48-1.51, the least margin 1.6e-3 at the decoder's
     outconv3 bias, 6e-4 from f64 on both sides), and the masters stay f32
     on both sides.
-  * the 5 fused sites in bf16 (FusedConv3x3Fn against up_conv_s2d_fused,
+  * the 5 fused sites in bf16 (the op's autograd against up_conv_s2d_fused,
     s2d_conv_fused and s2d_conv_res_fused, Pallas in interpret mode, on
     the same bf16-rounded inputs and cotangent; bf16 convs and sums on both
     sides, each rounded to 8 bits), about twice the worst measured: the x,
