@@ -94,7 +94,30 @@ final result line:
               busy time (union of device intervals); the trainer with its
               loader (bf16) over 16 batches of 12 after an untimed first,
               and the loader alone;
-  8d. export  exports phase main's seeded FootprintNetwork-34 through
+  8d. dp     data parallelism (footprints_tpu_torch/parallel/), on phase 7's
+              tree and batch: (a) python -m torch.distributed.run
+              --standalone --nproc_per_node=1 -m footprints_tpu_torch.main
+              --mode train (NCCL, world 1) at batch 12: 50 launches (read
+              from the rank's last line), a finite logged loss,
+              weights_0/checkpoint.npz at step 4 written once and resumed
+              by a plain TrainManager; (b) dryrun_multichip(2,
+              device='cuda'): two ranks on the one card over gloo, one f32
+              step and one bf16 packed-head step of FootprintNetwork-34 at
+              192x640, 2 images a rank, replicas bitwise equal after each,
+              10 launches per rank per forward (the bf16 ones on the bf16
+              route); (c) on phase 8b's batch-2 noise batch, the world-1
+              (NCCL) and world-2 (gloo, 1 image a rank) DP steps against
+              the f64 CPU step of phase 8b at phase 7's bars, the
+              single-process GPU step's distance printed beside them; (d)
+              a Segmentor-34 (PSP) world-2 f32 step, replicas bitwise
+              equal, against its f64 CPU step at the same bars; (e) the
+              world-1 DP step against the plain step at batch 12, f32 and
+              bf16 with the packed heads, in turns (CUDA events), and the
+              world-2 step's time at batch 12 with one profiled step's
+              all-reduce host time net of gloo's stream synchronise (its
+              wait for queued compute), the card's busy share summed over
+              both ranks, peak memory per rank (no claim);
+  8e. export  exports phase main's seeded FootprintNetwork-34 through
               python -m footprints_tpu_torch.export on the card (a saved
               torch.export program with the kernel as the custom op
               footprints::fused_conv3x3): a bf16 batch-16 artifact served
@@ -108,7 +131,7 @@ final result line:
               manager (5 bf16 launches) against the live f32 Tester.forward
               on the same frames, under the same rule.  Each export's wall
               time, size and count of ATen calls in its graph;
-  8e. export_times  the bf16 artifact's imgs/s at batch 16 and p50 at
+  8f. export_times  the bf16 artifact's imgs/s at batch 16 and p50 at
               batch 1 beside the live f32 forward's (phase times' method, in
               turns), ServingModel.call's rate on numpy, one profiled
               artifact forward at 16 (busy share, the kernel's share of it,
@@ -217,6 +240,7 @@ Exits non-zero when CUDA is absent or the package is not beside this file.
 import importlib.util
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -262,6 +286,9 @@ from footprints_tpu_torch.ops import fused_conv as fc
 from footprints_tpu_torch.ops.fused_conv import (fused_conv3x3,
                                                  fused_conv3x3_plain)
 from footprints_tpu_torch.options import Options
+from footprints_tpu_torch.parallel import (all_reduce_mean, replica_digest, replicate_tree,
+                                           shard_batch, sync_batch_norm)
+from footprints_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
 from footprints_tpu_torch.train.losses import TARGET_KEYS, compute_losses
 from footprints_tpu_torch.train.step import (TrainStepConfig, build_train_step, forward_in,
                                              make_optimizer)
@@ -826,7 +853,7 @@ class InMemorySamples:
 class InMemoryTrainManager(TrainManager):
     train_batches = TRAIN_STEPS
 
-    def create_dataloaders(self):
+    def create_dataloaders(self, shard=(0, 1)):
         bs = self.opt.batch_size
         return (DataLoader(InMemorySamples(bs * self.train_batches, 0), bs, shuffle=True,
                            num_workers=self.opt.num_workers, seed=TRAIN_SEED),
@@ -1356,8 +1383,8 @@ def phase_train_bf16(fail, run, workdir):
          checkpoint=os.path.relpath(ckpt, workdir), resumed_step=tm2.step,
          packed_targets_on_card=packs, peak_memory_gib=peak_gib,
          epoch_seconds_with_first_batch_and_validation=tm.train_seconds)
-    train_check_steps(fail)
-    return launches + phase_pretrained(fail, run, workdir)
+    f32_check = train_check_steps(fail)
+    return launches + phase_pretrained(fail, run, workdir), f32_check
 
 
 def train_check_steps(fail):
@@ -1369,7 +1396,8 @@ def train_check_steps(fail):
     heads against the one without: loss terms within 1e-6 relative, the
     whole gradient ||d||/||ref|| < 1e-5, beside the same heads-off step run
     twice (cuDNN's own run-to-run spread).  Printed beside them: the worst
-    leaves and the count of mask logits that are exactly 0."""
+    leaves and the count of mask logits that are exactly 0.  Returns the f64
+    CPU step and the GPU f32 step (both heads on) for phase dp."""
     small = collate([InMemorySamples(CHECK_BATCH, CHECK_SEED)[i] for i in range(CHECK_BATCH)])
     runs = {"gpu_bf16": ("cuda", torch.float32, "bfloat16", True),
             "cpu_bf16": ("cpu", torch.float32, "bfloat16", True),
@@ -1422,6 +1450,7 @@ def train_check_steps(fail):
                              "worst_leaf": worst_grad_leaf(g_on, g_off),
                              "same_step_twice_whole_grad_rel": repeat_rel}),
         seconds=seconds)
+    return {k: steps[k] for k in ("cpu_f64", "gpu_f32_heads")}
 
 
 def write_torchvision_resnet34(path, seed):
@@ -2111,7 +2140,7 @@ class InMemorySegSamples:
 class InMemorySegTrainer(seg_trainer.Trainer):
     train_batches = SEG_TRAIN_STEPS
 
-    def create_dataloaders(self):
+    def create_dataloaders(self, shard=(0, 1)):
         bs = self.opt.batch_size
         return (DataLoader(InMemorySegSamples(bs * self.train_batches, 0), bs, shuffle=True,
                            num_workers=self.opt.num_workers, seed=seg_trainer.SEED),
@@ -3363,6 +3392,374 @@ def phase_export_times(fail, workdir, a16, weights, run):
          loader=f"{TRAIN_TIMED_BATCHES} batches of {TRAIN_BATCH} after an untimed first")
 
 
+# --- phase dp: data parallelism (footprints_tpu_torch/parallel/) ------------
+
+DP_WORLD = 2  # ranks sharing the one card over gloo (NCCL refuses two ranks on one device)
+DP_TIMED_STEPS = 3
+
+
+def dp_summary(mesh, net, optimizer, metrics, launches):
+    """A data-parallel step's result on this rank: the ranks' mean of each
+    loss term, every rank's replica digest and this rank's kernel launches;
+    from rank 0 the averaged gradients (f32) and the BN running stats."""
+    names = sorted(k for k in metrics if k != "lr")
+    losses = all_reduce_mean(mesh, torch.stack([metrics[k] for k in names])).tolist()
+    digests = [None] * mesh.world_size
+    torch.distributed.all_gather_object(digests, replica_digest(net, optimizer),
+                                        group=mesh.side_group)
+    out = {"losses": dict(zip(names, losses)), "digests": digests, "launches": launches}
+    if mesh.rank == 0:
+        out["grads"] = {n: p.grad.detach().cpu().numpy() for n, p in net.named_parameters()
+                        if p.grad is not None}
+        out["stats"] = {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()
+                        if "running" in k}
+    return out
+
+
+def dp_footprint_rank(mesh, host, heads=True):
+    """One data-parallel step of the seeded FootprintNetwork-34 (f32, as
+    train_step_on builds it) on this rank's rows of `host`."""
+    mm = ModelManager(device=mesh.device, seed=SEED, steps_per_epoch=TRAIN_STEPS)
+    sync_batch_norm(mm.net, mesh)
+    replicate_tree(mesh, mm.net)
+    config = TrainStepConfig(steps_per_epoch=TRAIN_STEPS, s2d_head=heads, p4_head=heads)
+    step = build_train_step(mm.net, mm.optimizer, config, mesh)
+    batch = shard_batch(mesh, host)
+    before = fused_conv3x3.launches
+    metrics = step(0, batch)
+    torch.cuda.synchronize(mesh.device)
+    return dp_summary(mesh, mm.net, mm.optimizer, metrics, fused_conv3x3.launches - before)
+
+
+def dp_segmentor_rank(mesh, host):
+    """One data-parallel f32 step of the seeded Segmentor-34 (PSP), as
+    seg_step_on builds it."""
+    net = Segmentor(34, True, device=mesh.device, generator=torch.Generator().manual_seed(SEED))
+    sync_batch_norm(net, mesh)
+    replicate_tree(mesh, net)
+    optimizer = make_optimizer(net, TrainStepConfig())
+    step = seg_trainer.build_train_step(net, optimizer, lambda s: 1e-4, torch.float32, mesh)
+    batch = shard_batch(mesh, host)
+    before = fused_conv3x3.launches
+    metrics = step(0, batch)
+    torch.cuda.synchronize(mesh.device)
+    return dp_summary(mesh, net, optimizer, metrics, fused_conv3x3.launches - before)
+
+
+def dp_card_batch(mesh, host, heads):
+    """This rank's rows of `host` on its card, with the packed targets the
+    trainer's decode makes when the heads are on."""
+    keys = TARGET_KEYS if heads else ()
+    return decompact_on_device(shard_batch(mesh, host), None, keys, keys)
+
+
+# the profiler's spans of the DP step's all-reduces: the global BN's forward
+# and backward (nn/layers.py:_AllReduceSum) and the gradient bucket
+# (parallel/mesh.py:all_reduce_gradients)
+DP_REDUCE_SPANS = ("_AllReduceSum", "_AllReduceSumBackward", "all_reduce_gradients")
+# the host's waits for the card: gloo synchronises the stream before it
+# copies a CUDA tensor to the host, which waits for all compute queued before
+DP_SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize")
+
+
+def merged(intervals):
+    """The union of (start, end) intervals as sorted disjoint intervals."""
+    out = []
+    for start, end in sorted(intervals):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return out
+
+
+def overlap_ns(a, b):
+    """Time in which an interval of merged `a` and one of merged `b` both ran."""
+    total, i, j = 0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def dp_profiled(fn, device):
+    """fn() once under torch.profiler: its wall ms (host clock ending in a
+    synchronise); the device's busy ms (the union of this process's kernel
+    intervals) and idle ms (wall - busy); the host ms inside the all-reduce
+    spans (DP_REDUCE_SPANS, by name and as their union), which includes
+    gloo's stream synchronise and so the wait for every kernel queued
+    before each span; the synchronise calls' ms inside the spans (any
+    thread); and the spans net of them, the collectives' own host time
+    (copies, the exchange, the wait for the peer rank), with its share of
+    the wall; and the 8 ops of most self CPU time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    raw = prof.profiler.kineto_results.events()
+    host = [e for e in raw if e.device_type() == DeviceType.CPU]
+    spans = {k: merged((e.start_ns(), e.end_ns()) for e in host if e.name() == k)
+             for k in DP_REDUCE_SPANS}
+    in_spans = merged(iv for ivs in spans.values() for iv in ivs)
+    syncs = merged((e.start_ns(), e.end_ns()) for e in host if e.name() in DP_SYNC_CALLS)
+    spans_ms = sum(end - start for start, end in in_spans) / 1e6
+    sync_ms = overlap_ns(in_spans, syncs) / 1e6
+    busy_ms = union_ms(device_spans(raw))
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+    return {"profiled_wall_ms": wall_ms, "busy_ms_union": busy_ms,
+            "idle_ms": wall_ms - busy_ms,
+            "all_reduce_span_ms": {k: sum(end - start for start, end in ivs) / 1e6
+                                   for k, ivs in spans.items()},
+            "all_reduce_spans_ms_union": spans_ms,
+            "stream_sync_in_spans_ms": sync_ms, "stream_sync_calls": len(syncs),
+            "all_reduce_net_of_sync_ms": spans_ms - sync_ms,
+            "all_reduce_net_of_sync_share": (spans_ms - sync_ms) / wall_ms,
+            "top_self_cpu_ms": {e.key[:60]: e.self_cpu_time_total / 1e3 for e in top}}
+
+
+def dp_world1_times(mesh, host):
+    """At world 1 over NCCL: the DP step (global BN's all-reduces, the
+    gradient all-reduce) against the plain step (no group), f32 and bf16
+    with the packed heads, in turns (plain, dp, dp, plain), each reading
+    the mean of DP_TIMED_STEPS steps by CUDA events; peak memory; one
+    profiled step of each (dp_profiled)."""
+    out = {}
+    for compute in ("float32", "bfloat16"):
+        heads = compute == "bfloat16"
+        config = TrainStepConfig(steps_per_epoch=TRAIN_STEPS, compute_dtype=compute,
+                                 s2d_head=heads, p4_head=heads)
+        steps = {}
+        for name in ("plain", "dp"):
+            mm = ModelManager(device=mesh.device, seed=SEED, steps_per_epoch=TRAIN_STEPS)
+            if name == "dp":
+                sync_batch_norm(mm.net, mesh)
+            steps[name] = build_train_step(mm.net, mm.optimizer, config,
+                                           mesh if name == "dp" else None)
+        b = dp_card_batch(mesh, host, heads)
+        for fn in steps.values():
+            time_ms(lambda: fn(0, b), iters=1, warmup=2)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        readings = {"plain": [], "dp": []}
+        for name in ("plain", "dp", "dp", "plain"):
+            readings[name].append(time_ms(lambda: steps[name](0, b), iters=DP_TIMED_STEPS,
+                                          warmup=0))
+        out[compute] = {"plain_ms": readings["plain"], "dp_ms": readings["dp"],
+                        "peak_memory_gib_both_models": torch.cuda.max_memory_allocated(
+                            mesh.device) / 2 ** 30,
+                        "profiled": {name: dp_profiled(lambda: fn(0, b), mesh.device)
+                                     for name, fn in steps.items()}}
+    return out
+
+
+def dp_world2_times(mesh, host):
+    """At world 2 on the one card over gloo: the f32 DP step at the global
+    batch of `host` (host clock ending in a synchronise, mean of
+    DP_TIMED_STEPS after 2), one profiled step (dp_profiled: the
+    all-reduces' host time net of gloo's waits for queued compute, and its
+    share of the wall), and this rank's peak memory."""
+    mm = ModelManager(device=mesh.device, seed=SEED, steps_per_epoch=TRAIN_STEPS)
+    sync_batch_norm(mm.net, mesh)
+    replicate_tree(mesh, mm.net)
+    step = build_train_step(mm.net, mm.optimizer,
+                            TrainStepConfig(steps_per_epoch=TRAIN_STEPS), mesh)
+    b = dp_card_batch(mesh, host, False)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    for _ in range(2):
+        step(0, b)
+    torch.cuda.synchronize(mesh.device)
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED_STEPS):
+        step(0, b)
+    torch.cuda.synchronize(mesh.device)
+    ms = (time.perf_counter() - t0) * 1e3 / DP_TIMED_STEPS
+    return {"batch_per_rank": len(b["image"]), "step_ms": ms,
+            **dp_profiled(lambda: step(0, b), mesh.device),
+            "peak_memory_gib": torch.cuda.max_memory_allocated(mesh.device) / 2 ** 30}
+
+
+def dp_world1_rank(mesh, check_host, timed_host):
+    return {"check": dp_footprint_rank(mesh, check_host),
+            "times": dp_world1_times(mesh, timed_host)}
+
+
+def dp_world2_rank(mesh, check_host, seg_host, timed_host):
+    return {"check": dp_footprint_rank(mesh, check_host),
+            "segmentor": dp_segmentor_rank(mesh, seg_host),
+            "times": dp_world2_times(mesh, timed_host)}
+
+
+def dp_against(fail, tag, got, ref):
+    """Phase 7's bars on a DP step's rank-0 result against an f64 CPU
+    step's (metrics, grads, stats): loss terms 1e-5 + 1e-5|ref|, each
+    gradient leaf ||d||/||ref|| < 2e-2, BN running stats 1e-5."""
+    m_ref, g_ref, s_ref = ref[:3]
+    grads = {k: torch.from_numpy(v).double() for k, v in got["grads"].items()}
+    worst_loss = max(abs(got["losses"][k] - v) for k, v in m_ref.items())
+    loss_ok = all(abs(got["losses"][k] - v) <= 1e-5 + 1e-5 * abs(v) for k, v in m_ref.items())
+    leaf, rel = worst_grad_leaf(grads, g_ref)
+    bn_err = max(float(np.abs(got["stats"][k] - v.numpy()).max()) for k, v in s_ref.items())
+    fail.check(loss_ok, f"dp {tag}: loss terms differ from the f64 step by up to {worst_loss}")
+    fail.check(grads.keys() == g_ref.keys() and rel < 2e-2,
+               f"dp {tag}: gradient of {leaf} {rel} from the f64 step")
+    fail.check(bn_err <= 1e-5, f"dp {tag}: BN running stats differ by {bn_err}")
+    return {"loss_max_abs_err": worst_loss, "worst_grad_leaf": leaf, "worst_grad_rel": rel,
+            "bn_max_abs_err": bn_err}
+
+
+def dp_torchrun(fail, run, workdir):
+    """(a) world 1 through the real launch path: torchrun, NCCL,
+    main --mode train; the checkpoint resumed by a plain TrainManager."""
+    fail.check(run["real"], "dp: the torchrun run needs the KITTI tree (Pillow, OpenCV, "
+                            "PyYAML)")
+    if not run["real"]:
+        return 0, {}
+    argv = run["argv"] + ["--model_name", "smoke_dp"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+         "-m", "footprints_tpu_torch.main", *argv],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    os.makedirs(os.path.join(REPO, "smoke_out"), exist_ok=True)
+    with open(os.path.join(REPO, "smoke_out", "dp_torchrun.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    fail.check(proc.returncode == 0, f"dp: torchrun exited {proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+    out = proc.stdout
+    meshes = re.findall(r"data parallel: (.*)", out)
+    fail.check(meshes == ["rank 0 of 1 on cuda:0 over nccl"],
+               f"dp: torchrun's rank reported {meshes}, expected rank 0 of 1 on cuda:0 "
+               f"over nccl")
+    counts = re.findall(r"rank 0: (\d+) fused_conv3x3 launches in this process, (\d+) bf16",
+                        out)
+    launches = int(counts[0][0]) if len(counts) == 1 else 0
+    expected = LAUNCHES_PER_FORWARD * (TRAIN_STEPS + VAL_BATCHES)
+    fail.check(launches == expected, f"dp: torchrun rank 0 launched the kernel {counts}, "
+                                     f"expected {expected}")
+    losses = [float(v) for v in re.findall(r"Epoch 0 -- Batch 0 -- Loss (\S+)", out)]
+    fail.check(len(losses) == 1 and np.isfinite(losses).all(), f"dp: logged losses {losses}")
+    weights = os.path.join(workdir, "train_logs", "smoke_dp", "models", "weights_0")
+    ckpt = os.path.join(weights, "checkpoint.npz")
+    ok = os.path.exists(ckpt) and out.count("saving checkpoint to") == 1
+    if ok:
+        loaded = load_checkpoint(ckpt)
+        ok = int(loaded["step"]) == TRAIN_STEPS == int(loaded["opt_state"][0][0])
+    fail.check(ok, f"dp: {ckpt} missing, written more than once, or not at step "
+                   f"{TRAIN_STEPS}")
+    resumed = {}
+    if ok:
+        tm = trainer_for(run, ["--model_name", "smoke_dp", "--load_path", weights])
+        (count, _, _), _ = tm.model_manager.train_state()["opt_state"]
+        resumed = {"world_size": tm.mesh.world_size, "step": tm.step, "adam_count": int(count)}
+        tm.val_iter.close()
+        fail.check(resumed == {"world_size": 1, "step": TRAIN_STEPS, "adam_count": TRAIN_STEPS},
+                   f"dp: the plain TrainManager resumed {resumed}")
+    return launches, {"launcher": "torch.distributed.run --standalone --nproc_per_node=1",
+                      "mesh": meshes, "launches": launches, "launches_expected": expected,
+                      "logged_loss": losses, "checkpoint": os.path.relpath(ckpt, workdir),
+                      "resumed": resumed, "seconds": seconds}
+
+
+def phase_dp(fail, run, workdir, host, f32_check):
+    """(a) world 1 through torchrun + NCCL; (b) dryrun_multichip at world 2
+    on the one card; (c) the world-1 (NCCL) and world-2 (gloo) DP steps on
+    the check batch against the f64 CPU step of train_check_steps; (d) the
+    Segmentor-34's world-2 step against its f64 CPU step; (e) times.
+    Returns the kernel's launches on the main paths driven here."""
+    t0 = time.perf_counter()
+    launches_a, torchrun = dp_torchrun(fail, run, workdir)
+    seconds = {"torchrun": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    try:
+        dry = dryrun_multichip(DP_WORLD, device="cuda", height=HEIGHT, width=WIDTH, depth=34)
+    except RuntimeError as e:
+        fail.check(False, f"dp: dryrun_multichip({DP_WORLD}, device='cuda'): {e}")
+        dry = []
+    seconds["dryrun"] = time.perf_counter() - t0
+    fail.check(len(dry) == DP_WORLD and all(
+        r["f32"]["launches"] == LAUNCHES_PER_FORWARD and r["f32"]["bf16_launches"] == 0
+        and r["bf16"]["launches"] == r["bf16"]["bf16_launches"] == LAUNCHES_PER_FORWARD
+        for r in dry), f"dp: dryrun launches per rank {dry}")
+    launches_b = sum(r["f32"]["launches"] + r["bf16"]["launches"] for r in dry)
+
+    small = collate([InMemorySamples(CHECK_BATCH, CHECK_SEED)[i] for i in range(CHECK_BATCH)])
+    seg_small = collate([InMemorySegSamples(CHECK_BATCH, CHECK_SEED)[i]
+                         for i in range(CHECK_BATCH)])
+    t0 = time.perf_counter()
+    try:
+        w1 = spawn(1, dp_world1_rank, small, host, device="cuda", backend="nccl")[0]
+        w2 = spawn(DP_WORLD, dp_world2_rank, small, seg_small, host, device="cuda",
+                   backend="gloo")
+    except RuntimeError as e:
+        fail.check(False, f"dp: a DP world failed: {e}")
+        return launches_a + launches_b
+    seconds["worlds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seg_ref = seg_step_on("cpu", seg_small, torch.float64)
+    seconds["seg_f64_reference"] = time.perf_counter() - t0
+
+    ref, gpu_single = f32_check["cpu_f64"], f32_check["gpu_f32_heads"]
+    checks = {"world_1_nccl": dp_against(fail, "world 1", w1["check"], ref),
+              "world_2_gloo": dp_against(fail, "world 2", w2[0]["check"], ref),
+              "segmentor_world_2_gloo": dp_against(fail, "segmentor world 2",
+                                                   w2[0]["segmentor"], seg_ref)}
+    leaf, rel = worst_grad_leaf(gpu_single[1], ref[1])
+    checks["single_process_gpu_step"] = {
+        "loss_max_abs_err": max(abs(gpu_single[0][k] - v) for k, v in ref[0].items()),
+        "worst_grad_leaf": leaf, "worst_grad_rel": rel,
+        "bn_max_abs_err": max(float((gpu_single[2][k] - v).abs().max())
+                              for k, v in ref[2].items())}
+    for tag, got in (("footprint", w2[0]["check"]), ("segmentor", w2[0]["segmentor"])):
+        fail.check(len(set(got["digests"])) == 1,
+                   f"dp {tag} world 2: replicas differ: {got['digests']}")
+    per_rank = {"footprint": [r["check"]["launches"] for r in w2],
+                "segmentor": [r["segmentor"]["launches"] for r in w2]}
+    fail.check(w1["check"]["launches"] == LAUNCHES_PER_FORWARD
+               and per_rank["footprint"] == [LAUNCHES_PER_FORWARD] * DP_WORLD
+               and per_rank["segmentor"] == [SEG_LAUNCHES_PER_FORWARD] * DP_WORLD,
+               f"dp: check-step launches world 1 {w1['check']['launches']}, world 2 {per_rank}")
+    launches_cd = (w1["check"]["launches"] + sum(per_rank["footprint"])
+                   + sum(per_rank["segmentor"]))
+    emit("dp", torchrun=torchrun,
+         dryrun={"world": DP_WORLD, "backend": "gloo", "device": "cuda:0 (all ranks)",
+                 "shape": [HEIGHT, WIDTH], "depth": 34, "images_per_rank": 2,
+                 "loss_f32": dry[0]["f32"]["loss"] if dry else None,
+                 "loss_bf16_packed_heads": dry[0]["bf16"]["loss"] if dry else None,
+                 "replicas_bitwise_equal": bool(dry),
+                 "launches_per_rank": [[r["f32"]["launches"], r["bf16"]["bf16_launches"]]
+                                       for r in dry]},
+         check_steps=dict(batch=CHECK_BATCH, shape=[HEIGHT, WIDTH],
+                          input=f"noise, seed {CHECK_SEED}", reference="CPU, f64",
+                          images_per_rank_world_2=CHECK_BATCH // DP_WORLD,
+                          loss_bar="1e-5 + 1e-5|ref|", grad_bar=2e-2, bn_bar=1e-5, **checks),
+         seconds=seconds)
+    world2 = [r["times"] for r in w2]
+    emit("dp_times", batch=TRAIN_BATCH, shape=[HEIGHT, WIDTH], depth=34,
+         world_1_nccl_vs_plain=w1["times"],
+         world_2_gloo_f32={"step_ms_by_rank": [t["step_ms"] for t in world2],
+                           "imgs_per_s": TRAIN_BATCH / (max(t["step_ms"] for t in world2)
+                                                        * 1e-3),
+                           # the ranks time-share the card: their busy times
+                           # add up to the card's
+                           "card_busy_share_both_ranks": sum(
+                               t["busy_ms_union"] for t in world2) / max(
+                               t["profiled_wall_ms"] for t in world2),
+                           "ranks": world2},
+         method="CUDA events in turns (plain, dp, dp, plain) at world 1; host clock "
+                "ending in a synchronise at world 2, both ranks on one card")
+    return launches_a + launches_b + launches_cd
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3400,8 +3797,10 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         train_launches, host, epoch, run = timed("train", phase_train, fail, workdir)
         timed("train_times", phase_train_times, fail, host, epoch)
-        train_launches += timed("train_bf16", phase_train_bf16, fail, run, workdir)
+        bf16_launches, f32_check = timed("train_bf16", phase_train_bf16, fail, run, workdir)
+        train_launches += bf16_launches
         timed("train_bf16_times", phase_train_bf16_times, fail, host, run)
+        dp_launches = timed("dp", phase_dp, fail, run, workdir, host, f32_check)
         export_launches, a16, export_weights = timed("export", phase_export, fail, workdir)
         timed("export_times", phase_export_times, fail, workdir, a16, export_weights, run)
     with tempfile.TemporaryDirectory() as workdir:
@@ -3422,8 +3821,8 @@ def main():
          forward_ms_per_step=2 * bf16_sites["forward_ms_per_step"],
          backward_ms_per_step=2 * bf16_sites["backward_ms_per_step"],
          source="phase seg_train_times' per-site bf16 times at batch 12, x2 decoders")
-    launches += (train_launches + export_launches + dump_launches + seg_launches
-                 + seg_train_launches)
+    launches += (train_launches + dp_launches + export_launches + dump_launches
+                 + seg_launches + seg_train_launches)
     emit("seconds", **seconds)
 
     if fail:

@@ -35,12 +35,21 @@ class DataLoader:
     Optional shuffle per epoch; drop_last (the default when shuffling)
     keeps every batch the same shape.  Workers run at most
     ``prefetch_batches`` positions ahead of the consumer.
+
+    ``shard=(rank, world)`` (data parallelism) keeps ``batch_size`` the
+    global batch and yields only rows ``[rank*B/W, (rank+1)*B/W)`` of each
+    global batch of the shared seeded permutation, so the ranks' rows
+    together are world 1's batch.
     """
 
     def __init__(self, dataset, batch_size, *, shuffle=False, num_workers=4,
-                 drop_last=None, seed=0, prefetch_batches=4):
+                 drop_last=None, seed=0, prefetch_batches=4, shard=(0, 1)):
+        rank, world = shard
+        if batch_size % world:
+            raise ValueError(f"batch_size {batch_size} must divide over {world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard = shard
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.drop_last = shuffle if drop_last is None else drop_last
@@ -55,8 +64,11 @@ class DataLoader:
         indices = np.arange(len(self.dataset))
         if self.shuffle:
             self._rng.shuffle(indices)
+        rank, world = self.shard
+        per = self.batch_size // world
         for b in range(len(self)):
-            yield indices[b * self.batch_size:(b + 1) * self.batch_size]
+            start = b * self.batch_size + rank * per
+            yield indices[start:min(start + per, (b + 1) * self.batch_size)]
 
     def __iter__(self):
         batch_indices = list(self._epoch_batches())

@@ -3,10 +3,15 @@
   python -m footprints_tpu_torch.main --mode train --training_dataset kitti ...
   python -m footprints_tpu_torch.main --mode inference --load_path <dir> ...
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given.  Data-parallel training
+over N cards of one host (or N processes on the CPU with ``--device cpu``):
+
+  python -m torch.distributed.run --standalone --nproc_per_node=N \
+      -m footprints_tpu_torch.main --mode train ...
 """
 
 from .options import Options
+from .parallel import shutdown
 
 
 def main(argv=None):
@@ -27,4 +32,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown()

@@ -12,6 +12,8 @@ The encoder runs on cuDNN / torch.nn.functional: the JAX package has no
 Pallas kernel here either.  BN follows ``module.training``: batch statistics
 and running-stat updates after ``.train()``, running statistics after
 ``.eval()``.  ``num_batches_tracked`` is not advanced (momentum is fixed).
+Under data parallelism train-mode BN takes its statistics over the global
+batch (parallel/mesh.py:sync_batch_norm).
 """
 
 import torch.nn as nn
@@ -37,8 +39,10 @@ def feature_channels(depth: int):
 
 
 def _bn(x, bn):
+    # dp_group: set by parallel/mesh.py:sync_batch_norm for global-batch BN
     return batch_norm(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                      bn.eps, training=bn.training, momentum=bn.momentum)
+                      bn.eps, training=bn.training, momentum=bn.momentum,
+                      group=getattr(bn, "dp_group", None))
 
 
 def _downsample(c_in, c_out, stride):

@@ -1,0 +1,25 @@
+"""Data parallelism over torch.distributed (counterpart of
+footprints_tpu/parallel/).  ``dryrun`` is imported by path
+(``footprints_tpu_torch.parallel.dryrun``): it builds the models."""
+
+from .distributed import host_batch_slice, initialize, local_device, rank_seed, shutdown
+from .mesh import (Mesh, all_reduce_gradients, all_reduce_mean, any_rank, barrier,
+                   make_mesh, replica_digest, replicate_tree, shard_batch, sync_batch_norm)
+
+__all__ = [
+    "make_mesh",
+    "shard_batch",
+    "replicate_tree",
+    "initialize",
+    "host_batch_slice",
+    "local_device",
+    "shutdown",
+    "Mesh",
+    "sync_batch_norm",
+    "all_reduce_gradients",
+    "all_reduce_mean",
+    "any_rank",
+    "barrier",
+    "rank_seed",
+    "replica_digest",
+]

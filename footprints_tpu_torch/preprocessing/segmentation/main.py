@@ -4,10 +4,15 @@ footprints_tpu/preprocessing/segmentation/main.py):
   python -m footprints_tpu_torch.preprocessing.segmentation.main --mode train ...
   python -m footprints_tpu_torch.preprocessing.segmentation.main --mode inference ...
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given.  Data-parallel training
+over N cards of one host (or N processes on the CPU with ``--device cpu``):
+
+  python -m torch.distributed.run --standalone --nproc_per_node=N \
+      -m footprints_tpu_torch.preprocessing.segmentation.main --mode train ...
 """
 
 from .options import Options
+from ...parallel import shutdown
 
 
 def main(argv=None):
@@ -30,4 +35,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown()

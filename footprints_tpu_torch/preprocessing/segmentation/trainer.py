@@ -1,11 +1,13 @@
 """Segmentation Trainer (counterpart of
 footprints_tpu/preprocessing/segmentation/trainer.py).
 
-One card: each step is the Segmentor's forward (train-mode BN), the seg
-loss, backward and Adam on the device, with the loss scalars kept there
-until the log cadence.  Defaults are the JAX package's: datasets
-[ADE20K, cityscapes] concatenated (the Matterport train list cut to its
-first 5,000 lines), 20 epochs, Adam at 1e-4 with StepLR every 10 epochs (a
+One card, or one card per process under torchrun (data parallelism, as
+train/trainer.py): each step is the Segmentor's forward (train-mode BN,
+over the global batch under torchrun), the seg loss, backward and Adam on
+the device, with the loss scalars kept there until the log cadence.
+Defaults are the JAX package's: datasets [ADE20K, cityscapes]
+concatenated (the Matterport train list cut to its first 5,000 lines), 20
+epochs, Adam at 1e-4 with StepLR every 10 epochs (a
 step schedule read before the update, train/step.py), a checkpoint per
 epoch (``epoch_<n>/checkpoint.npz``: params and BN state in the JAX
 layout, no optimizer state), and ``epoch_interrupt`` after the step in
@@ -33,10 +35,12 @@ from ...core.config import load_config, readlines
 from ...data.compact import BatchCompactor, decompact_on_device
 from ...data.loader import DataLoader, DevicePrefetcher
 from ...models import Segmentor
+from ...ops.fused_conv import fused_conv3x3
+from ...parallel import (all_reduce_gradients, any_rank, barrier, initialize, make_mesh,
+                         rank_seed, replicate_tree, sync_batch_norm)
 from ...train.evaluator import Evaluator
 from ...train.step import (TrainStepConfig, forward_in, make_lr_schedule,
                            make_optimizer, resolve_compute_dtype)
-from ...utils import select_device
 from .datasets import ConcatDataset, get_dataset_class
 from .inference import load_segmentor_weights
 from .losses import compute_seg_losses
@@ -45,14 +49,17 @@ SEED = 10
 MATTERPORT_TRAIN_CAP = 5000
 
 
-def build_train_step(net, optimizer, schedule, dtype=torch.float32):
+def build_train_step(net, optimizer, schedule, dtype=torch.float32, mesh=None):
     """Returns step_fn(step, batch) -> metrics: one update of ``net``.
 
     ``step`` is the count of updates so far (it picks the learning rate);
     ``batch``: {'image': [N,H,W,3], 'ground_mask', 'labelled_pix': [N,H,W]}
     on the net's device, f32.  The forward runs in ``dtype``
     (``forward_in``).  ``metrics`` holds the detached device loss scalars
-    and 'lr' (a float)."""
+    and 'lr' (a float).  With a distributed ``mesh`` the batch is this
+    rank's shard and the gradients are averaged over the ranks
+    (train/step.py:build_train_step)."""
+    params = [p for p in net.parameters() if p.requires_grad]
 
     def step_fn(step, batch):
         lr = schedule(step)
@@ -63,6 +70,8 @@ def build_train_step(net, optimizer, schedule, dtype=torch.float32):
         losses = compute_seg_losses(outputs, batch["ground_mask"], batch["labelled_pix"])
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
+        if mesh is not None:
+            all_reduce_gradients(mesh, params)
         optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["lr"] = lr
@@ -87,7 +96,15 @@ class Trainer:
     def __init__(self, options):
         print("setting up...")
         self.opt = options
-        self.device = select_device(getattr(options, "device", "cuda"))
+        device = getattr(options, "device", "cuda")
+        initialize(device=device)
+        self.mesh = make_mesh(device)
+        self.device = self.mesh.device
+        if self.mesh.distributed:
+            print(f"data parallel: {self.mesh}")
+        if self.opt.batch_size % self.mesh.world_size:
+            raise ValueError(f"batch_size {self.opt.batch_size} must divide over "
+                             f"{self.mesh.world_size} devices")
         self.compute_dtype = resolve_compute_dtype(getattr(options, "compute_dtype", None))
 
         self.net = Segmentor(depth=getattr(self.opt, "encoder_depth", 34),
@@ -99,8 +116,10 @@ class Trainer:
             init_encoder_from(self.net, pretrained)
         if self.opt.load_path is not None:
             load_segmentor_weights(self.net, self.opt.load_path)
+        sync_batch_norm(self.net, self.mesh)
+        replicate_tree(self.mesh, self.net)
 
-        self.train_loader, self.val_loader = self.create_dataloaders()
+        self.train_loader, self.val_loader = self.create_dataloaders(self.mesh.shard)
         steps_per_epoch = max(len(self.train_loader), 1)
         print(f"training images: {len(self.train_loader.dataset)}; "
               f"validation images: {len(self.val_loader.dataset)}")
@@ -110,26 +129,30 @@ class Trainer:
         self.schedule = make_lr_schedule(step_config)
         self.optimizer = make_optimizer(self.net, step_config)
         self.train_step = build_train_step(self.net, self.optimizer, self.schedule,
-                                           self.compute_dtype)
+                                           self.compute_dtype, self.mesh)
         self.eval_step = build_eval_step(self.net)
 
-        self.evaluator = Evaluator()
+        self.evaluator = Evaluator(self.mesh)
         self.logged = []  # (mode, step, averaged losses) at each log event
-        try:
-            from tensorboardX import SummaryWriter
+        self.train_writer = self.val_writer = None
+        if self.mesh.rank == 0:  # rank 0 alone writes tensorboard
+            try:
+                from tensorboardX import SummaryWriter
 
-            root = os.path.join(self.opt.log_path, self.opt.model_name)
-            self.train_writer = SummaryWriter(os.path.join(root, "train"))
-            self.val_writer = SummaryWriter(os.path.join(root, "val"))
-        except ImportError:
-            self.train_writer = self.val_writer = None
+                root = os.path.join(self.opt.log_path, self.opt.model_name)
+                self.train_writer = SummaryWriter(os.path.join(root, "train"))
+                self.val_writer = SummaryWriter(os.path.join(root, "val"))
+            except ImportError:
+                pass
         self.step = 0
         self.val_iter = iter(self.val_loader)
         self._compactor = BatchCompactor(getattr(self.opt, "host_batch_compact", "exact"))
 
-    def create_dataloaders(self):
+    def create_dataloaders(self, shard=(0, 1)):
+        """The train and val loaders of this rank's ``shard`` (rank, world)."""
         self.config = load_config(self.opt.config_path)
         train_sets, val_sets = [], []
+        seed = rank_seed(SEED, shard)  # each rank draws its own augmentations
         split_root = getattr(self.opt, "split_root", "splits")
         for name in self.opt.training_datasets:
             dataset_path = self.config[name]["dataset"]
@@ -139,15 +162,16 @@ class Trainer:
                 train_files = train_files[:MATTERPORT_TRAIN_CAP]
             cls = get_dataset_class(name)
             train_sets.append(cls(dataset_path, train_files, self.opt.height,
-                                  self.opt.width, is_train=True, seed=SEED))
+                                  self.opt.width, is_train=True, seed=seed))
             val_sets.append(cls(dataset_path, val_files, self.opt.height,
-                                self.opt.width, is_train=False, seed=SEED))
+                                self.opt.width, is_train=False, seed=seed))
         train_loader = DataLoader(ConcatDataset(train_sets), self.opt.batch_size,
                                   shuffle=True, num_workers=self.opt.num_workers,
-                                  seed=SEED)
+                                  seed=SEED, shard=shard)
         val_loader = DataLoader(ConcatDataset(val_sets), self.opt.batch_size,
                                 shuffle=True, drop_last=True,
-                                num_workers=min(2, self.opt.num_workers), seed=SEED)
+                                num_workers=min(2, self.opt.num_workers), seed=SEED,
+                                shard=shard)
         return train_loader, val_loader
 
     # ------------------------------------------------------------------
@@ -170,6 +194,8 @@ class Trainer:
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
             self.train_seconds = time.time() - self.start_time
+        print(f"training complete! rank {self.mesh.rank}: {fused_conv3x3.launches} "
+              f"fused_conv3x3 launches in this process, {fused_conv3x3.bf16_launches} bf16")
 
     def _on_preempt(self, signum, frame):
         print("SIGTERM received: will checkpoint after the current step...")
@@ -202,7 +228,7 @@ class Trainer:
                       f"Train Loss {tracked.get('loss', float('nan')):.4f} -- "
                       f"Val Loss {val_losses.get('loss', float('nan')):.4f}")
             self.step += 1
-            if self._preempt_requested:
+            if any_rank(self.mesh, self._preempt_requested):
                 self.save_model(tag="interrupt")
                 print(f"preemption checkpoint saved at step {self.step}")
                 return True
@@ -252,7 +278,11 @@ class Trainer:
 
     def save_model(self, tag=None):
         """``<log_path>/<model_name>/models/epoch_<n|tag>/checkpoint.npz``:
-        params and BN state in the JAX package's layout."""
+        params and BN state in the JAX package's layout.  Rank 0 writes it;
+        the other ranks wait for it."""
+        if self.mesh.rank != 0:
+            barrier(self.mesh)
+            return
         save_path = os.path.join(self.opt.log_path, self.opt.model_name, "models")
         params, state = segmentor_jax_params_from_state_dict(
             self.net.state_dict(), self.net.depth, self.net.use_psp)
@@ -260,3 +290,4 @@ class Trainer:
                             "checkpoint.npz")
         save_checkpoint(dest, {"params": params, "state": state})
         print(f"saved {dest}")
+        barrier(self.mesh)

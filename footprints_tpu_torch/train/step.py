@@ -1,10 +1,12 @@
 """Training and evaluation steps (counterpart of footprints_tpu/train/step.py).
 
 One train step is forward (train-mode BN), the 4-scale loss, backward and
-the optimizer update, on one device.  Loss scalars stay on the device; the
-trainer fetches them at its log cadence.  With ``compute_dtype`` bfloat16
-the forward runs on bf16 compute copies of the f32 masters
-(``forward_in``); the loss, the gradients of the masters and Adam's state
+the optimizer update, on one device; with a data-parallel mesh
+(parallel/mesh.py) each rank runs it on its shard, BN over the global
+batch, and the gradients are averaged over the ranks before the update.
+Loss scalars stay on the device; the trainer fetches them at its log
+cadence.  With ``compute_dtype`` bfloat16 the forward runs on bf16 compute
+copies of the f32 masters (``forward_in``); the loss, the gradients of the masters and Adam's state
 stay f32.  The eval step runs in the same dtype and with the same heads.
 
 Optimizer contract (reference model_manager.py:27-28): Adam at lr 1e-4 with
@@ -19,6 +21,7 @@ import dataclasses
 
 import torch
 
+from ..parallel.mesh import all_reduce_gradients
 from .losses import LossConfig, compute_losses
 
 _F32 = (None, "float32", "f32")
@@ -100,7 +103,7 @@ def make_optimizer(net, config: TrainStepConfig):
                             foreach=True)
 
 
-def build_train_step(net, optimizer, config: TrainStepConfig):
+def build_train_step(net, optimizer, config: TrainStepConfig, mesh=None):
     """Returns step_fn(step, batch) -> metrics, which runs one update.
 
     ``step`` is the count of updates so far (it picks the learning rate);
@@ -109,9 +112,14 @@ def build_train_step(net, optimizer, config: TrainStepConfig):
     'moving_object_mask': [N,H,W]} on the net's device, f32, and with the
     packed heads optionally their '@s2d'/'@s2d2' packs.  ``metrics`` holds
     the detached device loss scalars and 'lr' (a float).
+
+    With a distributed ``mesh`` the batch is this rank's shard, and the
+    gradients are averaged over the ranks after backward (the metrics stay
+    this rank's: the trainer averages them at its log cadence).
     """
     schedule = make_lr_schedule(config)
     dtype, heads = config.dtype, config.heads
+    params = [p for p in net.parameters() if p.requires_grad]
 
     def step_fn(step, batch):
         lr = schedule(step)
@@ -122,6 +130,8 @@ def build_train_step(net, optimizer, config: TrainStepConfig):
         losses = compute_losses(outputs, batch, config.loss)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
+        if mesh is not None:
+            all_reduce_gradients(mesh, params)
         optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["lr"] = lr

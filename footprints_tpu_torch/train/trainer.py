@@ -1,9 +1,15 @@
 """TrainManager, the training orchestrator (counterpart of
 footprints_tpu/train/trainer.py; reference training/train.py:42-227).
 
-One card: each step is forward (train-mode BN), loss, backward and Adam on
-the device, with the loss scalars kept there until the log cadence.  The
-input pipeline is the threaded loader, the compact host->device encoding
+One card, or one card per process under torchrun (data parallelism,
+parallel/): each step is forward (train-mode BN), loss, backward and Adam
+on the device, with the loss scalars kept there until the log cadence.
+Under torchrun each rank loads only its rows of every global batch of
+``--batch_size``, BN takes its statistics over the global batch, the
+gradients are averaged over the ranks, and the logged losses are the
+ranks' mean; rank 0 alone writes checkpoints and tensorboard, and a SIGTERM
+to any rank stops every rank after the same step.  The input pipeline is
+the threaded loader, the compact host->device encoding
 (``--host_batch_compact``, 'exact' by default) and a device prefetcher that
 copies two batches ahead on a side CUDA stream.  Checkpoints are the JAX
 package's ``checkpoint.npz``, with the Adam state and the step counter, so
@@ -29,7 +35,10 @@ from ..core.config import load_config, readlines
 from ..data import DataLoader, DevicePrefetcher, get_dataset_class
 from ..data.compact import BatchCompactor, decompact_on_device
 from ..model_manager import ModelManager
-from ..utils import sec_to_hm_str, select_device
+from ..ops.fused_conv import fused_conv3x3
+from ..parallel import (any_rank, barrier, initialize, make_mesh, rank_seed,
+                        replicate_tree, sync_batch_norm)
+from ..utils import sec_to_hm_str
 from .evaluator import Evaluator
 from .logger import TimeLogger, Timer, log
 from .losses import LossConfig
@@ -64,10 +73,19 @@ class TrainManager:
     def __init__(self, options):
         print("---------------\nsetting up...")
         self.opt = options
-        self.device = select_device(getattr(options, "device", "cuda"))
+        device = getattr(options, "device", "cuda")
+        initialize(device=device)
+        self.mesh = make_mesh(device)
+        self.device = self.mesh.device
+        if self.mesh.distributed:
+            print(f"data parallel: {self.mesh}")
+        n_dev = self.mesh.world_size
+        if self.opt.batch_size % n_dev:
+            raise ValueError(f"batch_size {self.opt.batch_size} must divide over "
+                             f"{n_dev} devices")
         if getattr(options, "debug_nans", False):
             torch.autograd.set_detect_anomaly(True)
-        self.train_loader, self.val_loader = self.create_dataloaders()
+        self.train_loader, self.val_loader = self.create_dataloaders(self.mesh.shard)
         steps_per_epoch = max(len(self.train_loader), 1)
         print(f"datasets done! train size - {len(self.train_loader.dataset)} images; "
               f"validation size - {len(self.val_loader.dataset)} images")
@@ -96,16 +114,31 @@ class TrainManager:
         if self.opt.load_path is not None:
             self.model_manager.load_model(weights_path=self.opt.load_path,
                                           load_optimiser=True)
+        net = self.model_manager.net
+        sync_batch_norm(net, self.mesh)
+        replicate_tree(self.mesh, net)
+        replicate_tree(self.mesh, self.model_manager.optimizer)
         print("models done!")
 
         self._compactor = BatchCompactor(getattr(self.opt, "host_batch_compact", "exact"))
-        net = self.model_manager.net
         self.train_step = build_train_step(net, self.model_manager.optimizer,
-                                           self.step_config)
+                                           self.step_config, self.mesh)
         self.eval_step = build_eval_step(net, self.step_config)
 
-        self.evaluator = Evaluator()
+        self.evaluator = Evaluator(self.mesh)
         self.logged = []  # (mode, step, averaged losses) at each log event
+        self.train_writer = self.val_writer = None
+        if self.mesh.rank == 0:
+            self._open_writers()
+
+        self.timer = TimeLogger()
+        self.step = self.model_manager.step
+        self.num_total_steps = steps_per_epoch * self.opt.epochs
+        self.val_iter = iter(self.val_loader)
+        self._profiler = None
+        print("training setup complete!\n---------------")
+
+    def _open_writers(self):
         try:
             from tensorboardX import SummaryWriter
 
@@ -113,18 +146,12 @@ class TrainManager:
             self.train_writer = SummaryWriter(os.path.join(root, "train"))
             self.val_writer = SummaryWriter(os.path.join(root, "val"))
         except ImportError:
-            self.train_writer = self.val_writer = None
-        self.timer = TimeLogger()
-
-        self.step = self.model_manager.step
-        self.num_total_steps = steps_per_epoch * self.opt.epochs
-        self.val_iter = iter(self.val_loader)
-        self._profiler = None
-        print("training setup complete!\n---------------")
+            pass
 
     # ------------------------------------------------------------------
 
-    def create_dataloaders(self):
+    def create_dataloaders(self, shard=(0, 1)):
+        """The train and val loaders of this rank's ``shard`` (rank, world)."""
         dataset = self.opt.training_dataset
         dataset_class = get_dataset_class(dataset)
         self.config = load_config(self.opt.config_path)
@@ -140,15 +167,17 @@ class TrainManager:
             moving_objects_method=self.opt.moving_objects_method,
             project_down_baseline=self.opt.project_down_baseline,
         )
+        # each rank draws its own augmentations (world 1 keeps SEED's draws)
+        seed = rank_seed(SEED, shard)
         train_dataset = dataset_class(raw_data_path, training_data_path, train_files,
-                                      is_train=True, seed=SEED, **common)
+                                      is_train=True, seed=seed, **common)
         val_dataset = dataset_class(raw_data_path, training_data_path, val_files,
-                                    is_train=False, seed=SEED, **common)
+                                    is_train=False, seed=seed, **common)
         train_loader = DataLoader(train_dataset, self.opt.batch_size, shuffle=True,
-                                  num_workers=self.opt.num_workers, seed=SEED)
+                                  num_workers=self.opt.num_workers, seed=SEED, shard=shard)
         val_loader = DataLoader(val_dataset, self.opt.batch_size, shuffle=True,
                                 num_workers=min(2, self.opt.num_workers),
-                                drop_last=True, seed=SEED)
+                                drop_last=True, seed=SEED, shard=shard)
         return train_loader, val_loader
 
     # ------------------------------------------------------------------
@@ -174,7 +203,8 @@ class TrainManager:
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
             self.train_seconds = time.time() - self.start_time
-        print("training complete!")
+        print(f"training complete! rank {self.mesh.rank}: {fused_conv3x3.launches} "
+              f"fused_conv3x3 launches in this process, {fused_conv3x3.bf16_launches} bf16")
 
     def _on_preempt(self, signum, frame):
         print("SIGTERM received: will checkpoint after the current step...")
@@ -212,14 +242,20 @@ class TrainManager:
                     self.val()
             self.step += 1
             self.model_manager.step = self.step
-            if self._preempt_requested:
-                self.model_manager.save_model(folder_name="weights_interrupt")
+            if any_rank(self.mesh, self._preempt_requested):
+                self.save_model("weights_interrupt")
                 print(f"preemption checkpoint saved at step {self.step}")
                 return True
 
         print(f"Epoch {self.epoch} complete!")
-        self.model_manager.save_model(folder_name=f"weights_{self.epoch}")
+        self.save_model(f"weights_{self.epoch}")
         return False
+
+    def save_model(self, folder_name):
+        """Rank 0 writes the checkpoint; the other ranks wait for it."""
+        if self.mesh.rank == 0:
+            self.model_manager.save_model(folder_name=folder_name)
+        barrier(self.mesh)
 
     def val(self):
         with Timer(self.timer, "val_time"):

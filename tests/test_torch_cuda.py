@@ -5,9 +5,10 @@ bf16 route) against autograd through the plain version, the device
 prefetcher's copy, the models' GPU forward and train steps (the
 FootprintNetwork's in f32 and in bf16 with the packed heads, the
 Segmentor's in f32 and bf16) against the CPU's,
-the batch dump's overlapped loop against its serial order, and GT
+the batch dump's overlapped loop against its serial order, GT
 generation's splat, median and KITTI aggregate on the GPU against the CPU
-(with TF32 off).
+(with TF32 off), and the data-parallel layer at world 1 over NCCL (the
+global-batch BN against F.batch_norm; a DP step through the kernel).
 
 They skip on a host without CUDA.  This file imports neither JAX nor the JAX
 package, so it also runs on a GPU host that has no JAX:
@@ -18,12 +19,16 @@ package, so it also runs on a GPU host that has no JAX:
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from footprints_tpu_torch.data import DevicePrefetcher
 from footprints_tpu_torch.data.compact import BatchCompactor, decompact_on_device
 from footprints_tpu_torch.eval.inference import dump_predictions, pad_batch
 from footprints_tpu_torch.models import SCALES, FootprintNetwork, Segmentor
+from footprints_tpu_torch.nn import layers
 from footprints_tpu_torch.ops import fused_conv as fc
+from footprints_tpu_torch.parallel import make_mesh, sync_batch_norm
 from footprints_tpu_torch.preprocessing.ground_truth_generation import generator as gt_generator
 from footprints_tpu_torch.preprocessing.ground_truth_generation import geometry as gt_geometry
 from footprints_tpu_torch.preprocessing.segmentation import trainer as seg_trainer
@@ -637,3 +642,71 @@ def test_gt_generator_runs_on_the_card_with_tf32_off(cuda_device, tmp_path, monk
     assert generator.device.type == "cuda"
     assert generator.generator.device.type == "cuda"
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+@pytest.fixture
+def nccl_world_1(cuda_device, tmp_path):
+    """A process group of one rank over NCCL (a FileStore in tmp_path), and
+    the mesh on it; destroyed after the test."""
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, world_size=1, rank=0)
+    try:
+        yield make_mesh("cuda:0")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_global_batch_norm_at_world_1_equals_f_batch_norm(nccl_world_1):
+    """The global-batch BN's two NCCL all-reduces over a world of one: the
+    same values, running stats and input gradient as F.batch_norm on the
+    card within 1e-6 + 1e-6|ref|; the weight and bias gradients, sums of
+    3840 products summed in another order, within 1e-6 max|ref|."""
+    g = torch.Generator().manual_seed(30)
+    x = (torch.randn(4, 64, 24, 40, generator=g) * 2 + 0.5).cuda()
+    x = x.to(memory_format=torch.channels_last)
+    w, b = (torch.rand(64, generator=g) + 0.5).cuda(), torch.randn(64, generator=g).cuda()
+    cot = torch.randn(x.shape, generator=g).cuda()
+    out = {}
+    for name, group in (("global", nccl_world_1.group), ("plain", None)):
+        xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+        rm, rv = torch.zeros(64, device="cuda"), torch.ones(64, device="cuda")
+        y = layers.batch_norm(xs, ws, bs, rm, rv, training=True, group=group)
+        (y * cot).sum().backward()
+        out[name] = (y, rm, rv, xs.grad, ws.grad, bs.grad)
+    ref = F.batch_norm(x, torch.zeros(64, device="cuda"), torch.ones(64, device="cuda"), w,
+                       b, training=True)
+    torch.testing.assert_close(out["plain"][0], ref, atol=0, rtol=0)
+    for got, want in zip(out["global"][:4], out["plain"][:4]):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    for got, want in zip(out["global"][4:], out["plain"][4:]):
+        torch.testing.assert_close(got, want, atol=1e-6 * want.abs().max().item(), rtol=0)
+
+
+def test_dp_step_at_world_1_runs_the_kernel(nccl_world_1):
+    """A data-parallel FootprintNetwork-18 step (global BN, NCCL gradient
+    all-reduce) at world 1: 10 launches per forward, and the losses of the
+    plain step within 1e-5."""
+    mesh = nccl_world_1
+    g = torch.Generator().manual_seed(31)
+    batch = {"image": torch.rand(2, 64, 128, 3, generator=g),
+             "depth": torch.rand(2, 64, 128, generator=g) * 20,
+             "ground_depth": torch.rand(2, 64, 128, generator=g) * 15,
+             **{k: (torch.rand(2, 64, 128, generator=g) > 0.5).float()
+                for k in ("visible_ground", "all_ground", "depth_mask",
+                          "moving_object_mask")}}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    config = tstep.TrainStepConfig()
+    metrics = {}
+    for name in ("dp", "plain"):
+        net = FootprintNetwork(18, device="cuda", generator=torch.Generator().manual_seed(31))
+        if name == "dp":
+            sync_batch_norm(net, mesh)
+        step = tstep.build_train_step(net, tstep.make_optimizer(net, config), config,
+                                      mesh if name == "dp" else None)
+        before = fc.fused_conv3x3.launches
+        metrics[name] = step(0, batch)
+        assert fc.fused_conv3x3.launches - before == 10
+    for k, v in metrics["plain"].items():
+        if k != "lr":
+            assert torch.isfinite(metrics["dp"][k])
+            assert abs(metrics["dp"][k].item() - v.item()) <= 1e-5 + 1e-5 * abs(v.item()), k

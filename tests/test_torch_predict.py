@@ -115,6 +115,8 @@ _IMPORT_ALL = (
     "import footprints_tpu_torch.baselines.footprint_baseline\n"
     "import footprints_tpu_torch.baselines.prepare_test_data\n"
     "import footprints_tpu_torch.export, footprints_tpu_torch.native\n"
+    "import footprints_tpu_torch.parallel.distributed, footprints_tpu_torch.parallel.mesh\n"
+    "import footprints_tpu_torch.parallel.dryrun\n"
     "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
     "    importlib.import_module(m.name)\n"
     "import chip_smoke\n"
