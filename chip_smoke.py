@@ -117,6 +117,26 @@ final result line:
               all-reduce host time net of gloo's stream synchronise (its
               wait for queued compute), the card's busy share summed over
               both ranks, peak memory per rank (no claim);
+  8d'. spatial  row-sharded eval (footprints_tpu_torch/parallel/halo.py),
+              every rank on the one card over gloo, seeded weights (seed
+              10), noise batches: (a) FootprintNetwork-34 at 192x640,
+              batch 4, 2 row shards: the f32 eval losses on every rank
+              within 1e-5 + 1e-5|ref| of the single-process eval on the
+              card, the gathered '1/1' map within MAE 1e-4, 10 launches a
+              rank a forward; the bf16 eval with the packed heads no
+              farther from the f32 eval than twice the single process's
+              bf16 eval + 1e-3, 10 bf16-route launches a rank; (b)
+              Segmentor-34 (PSP), the same at 5 launches (one world of 2
+              with (a)); (c) FootprintNetwork-34 at 512x640, batch 2, 4 row
+              shards (middle ranks with a seam on each side), as (a).  In
+              each, every kernel call of the main path (on the rank's rows
+              plus its seam rows) against the plain version on the same
+              input at phase sites' bars.  Printed, no claim: the f32 eval
+              step's ms on every rank against the single process (CUDA
+              events), peak activation memory a rank, the exchanges' host
+              ms in one profiled step, the exchanges per eval step, and
+              cuDNN's f32 time of the decoder's 1/4-scale convs at the
+              shard shapes, NCHW against channels_last;
   8e. export  exports phase main's seeded FootprintNetwork-34 through
               python -m footprints_tpu_torch.export on the card (a saved
               torch.export program with the kernel as the custom op
@@ -289,9 +309,10 @@ from footprints_tpu_torch.options import Options
 from footprints_tpu_torch.parallel import (all_reduce_mean, replica_digest, replicate_tree,
                                            shard_batch, sync_batch_norm)
 from footprints_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
+from footprints_tpu_torch.parallel.halo import exchange_rows, shard_rows
 from footprints_tpu_torch.train.losses import TARGET_KEYS, compute_losses
-from footprints_tpu_torch.train.step import (TrainStepConfig, build_train_step, forward_in,
-                                             make_optimizer)
+from footprints_tpu_torch.train.step import (TrainStepConfig, build_eval_step,
+                                             build_train_step, forward_in, make_optimizer)
 from footprints_tpu_torch.train.trainer import SEED as TRAIN_SEED
 from footprints_tpu_torch.train.trainer import TrainManager
 
@@ -3485,13 +3506,14 @@ def overlap_ns(a, b):
     return total
 
 
-def dp_profiled(fn, device):
+def dp_profiled(fn, device, span_names=DP_REDUCE_SPANS):
     """fn() once under torch.profiler: its wall ms (host clock ending in a
     synchronise); the device's busy ms (the union of this process's kernel
-    intervals) and idle ms (wall - busy); the host ms inside the all-reduce
-    spans (DP_REDUCE_SPANS, by name and as their union), which includes
-    gloo's stream synchronise and so the wait for every kernel queued
-    before each span; the synchronise calls' ms inside the spans (any
+    intervals) and idle ms (wall - busy); the host ms inside the collective
+    spans (`span_names`, by default the all-reduces' DP_REDUCE_SPANS; the
+    keys say all_reduce whatever the spans), by name and as their union,
+    which includes gloo's stream synchronise and so the wait for every
+    kernel queued before each span; the synchronise calls' ms inside the spans (any
     thread); and the spans net of them, the collectives' own host time
     (copies, the exchange, the wait for the peer rank), with its share of
     the wall; and the 8 ops of most self CPU time."""
@@ -3507,7 +3529,7 @@ def dp_profiled(fn, device):
     raw = prof.profiler.kineto_results.events()
     host = [e for e in raw if e.device_type() == DeviceType.CPU]
     spans = {k: merged((e.start_ns(), e.end_ns()) for e in host if e.name() == k)
-             for k in DP_REDUCE_SPANS}
+             for k in span_names}
     in_spans = merged(iv for ivs in spans.values() for iv in ivs)
     syncs = merged((e.start_ns(), e.end_ns()) for e in host if e.name() in DP_SYNC_CALLS)
     spans_ms = sum(end - start for start, end in in_spans) / 1e6
@@ -3759,6 +3781,277 @@ def phase_dp(fail, run, workdir, host, f32_check):
                 "ending in a synchronise at world 2, both ranks on one card")
     return launches_a + launches_b + launches_cd
 
+# --- phase spatial: row-sharded eval (footprints_tpu_torch/parallel/halo.py) --
+
+# (case, model, global batch, (H, W), row shards): kitti at 2 shards, both
+# models in one world of 2; matterport at 4, whose middle ranks have a seam
+# on each side, in a world of 4.  Every rank on the one card over gloo.
+SPATIAL_CASES = (("footprint_kitti", "footprint", 4, (HEIGHT, WIDTH), 2),
+                 ("segmentor_kitti", "segmentor", 4, (HEIGHT, WIDTH), 2),
+                 ("footprint_matterport", "footprint", 2, MATTERPORT_HW, 4))
+SPATIAL_SEED = 30_000
+SPATIAL_TIMED_STEPS = 3
+HALO_SPANS = ("exchange_rows", "gather_rows")
+BF16_HEADS = {"compute_dtype": "bfloat16", "s2d_head": True, "p4_head": True}
+
+
+def spatial_net(model, device):
+    """The seeded FootprintNetwork-34 or Segmentor-34 (PSP) on `device`."""
+    g = torch.Generator().manual_seed(SEED)
+    net = (FootprintNetwork(34, device=device, generator=g) if model == "footprint"
+           else Segmentor(34, True, device=device, generator=g))
+    return net.eval()
+
+
+def spatial_batch(model, n, hw, seed):
+    """A seeded host batch: noise images and the model's eval targets."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+
+    def mask(p):
+        return (rng.rand(n, h, w) < p).astype(np.float32)
+
+    batch = {"image": rng.rand(n, h, w, 3).astype(np.float32)}
+    if model == "segmentor":
+        return {**batch, "ground_mask": mask(0.5), "labelled_pix": mask(0.8)}
+    return {**batch, "depth": (rng.rand(n, h, w) * 20 * mask(0.7)).astype(np.float32),
+            "visible_ground": mask(0.5), "all_ground": mask(0.6),
+            "ground_depth": (rng.rand(n, h, w) * 15 * mask(0.5)).astype(np.float32),
+            "depth_mask": mask(0.4), "moving_object_mask": mask(0.2)}
+
+
+def spatial_eval_steps(model, net, mesh):
+    """{name: eval_fn} of the model's eval steps on `mesh` (None: one
+    process): f32, and for the FootprintNetwork bf16 with the packed heads."""
+    if model == "segmentor":
+        return {"f32": seg_trainer.build_eval_step(net, mesh)}
+    return {"f32": build_eval_step(net, TrainStepConfig(), mesh),
+            "bf16": build_eval_step(net, TrainStepConfig(**BF16_HEADS), mesh)}
+
+
+def spatial_forward(model, net, image, mesh):
+    """The '1/1' map of the f32 forward (this rank's rows on a mesh)."""
+    with torch.no_grad(), shard_rows(net, mesh):
+        out = net(image, scales=("1/1",))
+    return (out["1/1"] if model == "footprint" else out[0]).cpu().numpy()
+
+
+class KernelCalls:
+    """While active, records each launch of the kernel (its inputs and
+    output, copied) through fused_conv._launch, which the op's forward looks
+    up at every call."""
+
+    def __enter__(self):
+        self.calls, self._launch = [], fc._launch
+
+        def launch(x, w, b, r, pad_mode, act):
+            y = self._launch(x, w, b, r, pad_mode, act)
+            self.calls.append(([None if t is None else t.clone() for t in (x, w, b, r)],
+                               pad_mode, act, y.clone()))
+            return y
+
+        fc._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        fc._launch = self._launch
+
+
+def seam_site_check(calls):
+    """Each recorded launch (on a row shard extended by its seam rows)
+    against the plain version on the same inputs, at phase sites' bars: f32
+    1e-4 + 1e-4|ref|; bf16 2e-2 + 2e-2|ref| against the f32 plain version
+    of the bf16-rounded inputs.  The launch itself is the main path's."""
+    worst, ok, shapes = 0.0, True, []
+    for inputs, pad_mode, act, y in calls:
+        x = inputs[0]
+        tol = 1e-4 if x.dtype == torch.float32 else 2e-2
+        ref = fused_conv3x3_plain(*[None if t is None else t.float() for t in inputs],
+                                  pad_mode=pad_mode, act=act)
+        diff = (y.float() - ref).abs()
+        ok = ok and bool(torch.isfinite(y).all()) and bool((diff <= tol + tol * ref.abs()).all())
+        worst = max(worst, diff.max().item())
+        shapes.append([pad_mode, list(x.shape)])
+    return {"max_abs_err": worst, "ok": ok, "calls": len(calls), "inputs": shapes}
+
+
+def spatial_times(step, batch, device):
+    """The eval step's mean ms over SPATIAL_TIMED_STEPS after one warm-up
+    (CUDA events on this process's stream, which the collectives
+    synchronise), its peak allocated memory above what was allocated before
+    it (weights and batch), and one profiled step's host time in the halo
+    exchanges (dp_profiled over HALO_SPANS)."""
+    step(batch)
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ms = time_ms(lambda: step(batch), iters=SPATIAL_TIMED_STEPS, warmup=0)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    prof = dp_profiled(lambda: step(batch), device, HALO_SPANS)
+    return {"ms": ms, "peak_activation_gib": peak / 2 ** 30,
+            "halo_host_ms": prof["all_reduce_spans_ms_union"],
+            "halo_host_net_of_sync_ms": prof["all_reduce_net_of_sync_ms"],
+            "profiled_wall_ms": prof["profiled_wall_ms"], "busy_ms_union": prof["busy_ms_union"]}
+
+
+# (reflect-padded input, output channels) of decoder convs, whole at batch
+# 4 and a row shard's (own rows + 2) at 2 and 3 shards of 192x640: the
+# 1/4-scale ConvBlock convs (block3's post-concat conv1 and conv2, block4's
+# pre-concat convs), then the '1/2' and '1/1' heads' convs
+SPATIAL_CUDNN_SHAPES = (
+    [((4, c, rows, WIDTH // 4 + 2), 64) for rows in (HEIGHT // 4 + 2, HEIGHT // 8 + 2,
+                                                     HEIGHT // 12 + 2) for c in (128, 64)]
+    + [((4, c, rows // scale + 2, WIDTH // scale + 2), 2) for scale, c in ((2, 64), (1, 32))
+       for rows in (HEIGHT, HEIGHT // 2)])
+
+
+def spatial_cudnn_probe():
+    """cuDNN's f32 time (TF32 off) and peak memory above the start of
+    decoder convs at the whole and the row-shard shapes, NCHW against
+    channels_last (why nn/blocks.py:ConvBlock hands a row shard's padded
+    inputs to cuDNN in channels_last, and OutConvBlock, the heads, NCHW)."""
+    out = []
+    for shape, co in SPATIAL_CUDNN_SHAPES:
+        g = torch.Generator().manual_seed(SEED)
+        x = torch.randn(shape, generator=g).cuda()
+        w = torch.randn(co, shape[1], 3, 3, generator=g).cuda()
+        row = {"x": list(shape), "w": list(w.shape)}
+        for fmt, t in (("nchw", x), ("channels_last",
+                                      x.contiguous(memory_format=torch.channels_last))):
+            F.conv2d(t, w)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            row[f"{fmt}_ms"] = time_ms(lambda: F.conv2d(t, w), iters=5, warmup=1)
+            row[f"{fmt}_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        out.append(row)
+    return out
+
+
+def spatial_rank(mesh, cases):
+    """Each case on this rank's shard of its batch: every eval step (its
+    losses, the kernel's launches in it, the exchanges, and the kernel's
+    calls against the plain version), the rows of the f32 '1/1' map, and the
+    f32 step's times.  Ranks are spawned processes that import this file."""
+    out = {}
+    for case, model, host in cases:
+        net = spatial_net(model, mesh.device)
+        local = shard_batch(mesh, host)
+        got = {"rows": local["image"].shape[1]}
+        for name, step in spatial_eval_steps(model, net, mesh).items():
+            before = (fused_conv3x3.launches, fused_conv3x3.bf16_launches, exchange_rows.calls)
+            with KernelCalls() as calls:
+                losses = step(local)
+                torch.cuda.synchronize(mesh.device)
+            got[name] = {"losses": {k: float(v) for k, v in losses.items()},
+                         "launches": fused_conv3x3.launches - before[0],
+                         "bf16_launches": fused_conv3x3.bf16_launches - before[1],
+                         "exchanges": exchange_rows.calls - before[2],
+                         "seam_sites": seam_site_check(calls.calls)}
+        before = fused_conv3x3.launches
+        got["1/1"] = spatial_forward(model, net, local["image"], mesh)
+        got["forward_launches"] = fused_conv3x3.launches - before
+        got["times"] = spatial_times(spatial_eval_steps(model, net, mesh)["f32"], local,
+                                     mesh.device)
+        out[case] = got
+        del net
+    return out
+
+
+def spatial_single(model, host):
+    """The same case in this process, unsharded, on the card."""
+    net = spatial_net(model, "cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    steps = spatial_eval_steps(model, net, None)
+    out = {name: {k: float(v) for k, v in step(batch).items()} for name, step in steps.items()}
+    out["1/1"] = spatial_forward(model, net, batch["image"], None)
+    out["times"] = spatial_times(steps["f32"], batch, torch.device("cuda"))
+    return out
+
+
+def phase_spatial(fail, smi):
+    """Row-sharded eval of both models over ranks on the one card (gloo):
+    each case's losses on every rank against the single-process eval on the
+    card (1e-5 + 1e-5|ref|), the gathered '1/1' map (MAE < 1e-4), the
+    kernel's launches per rank per forward on the route of its dtype, every
+    seam call against the plain version, the FootprintNetwork's bf16 eval
+    (packed heads) no farther from the f32 eval than twice the single
+    process's bf16 eval + 1e-3; then times, memory and the exchanges
+    (no claim), beside cuDNN's times at the shard shapes of the decoder's
+    1/4-scale convs (spatial_cudnn_probe).  Returns (the kernel's launches
+    on the paths driven here, the worst f32 seam-site error)."""
+    emit("spatial_cudnn_probe", card=smi, convs=spatial_cudnn_probe(),
+         method="F.conv2d f32, TF32 off, mean of 5 after 1 (CUDA events); peak allocated "
+                "above the start")
+    hosts = {case: spatial_batch(model, n, hw, SPATIAL_SEED + i)
+             for i, (case, model, n, hw, _) in enumerate(SPATIAL_CASES)}
+    launches, worst = 0, 0.0
+    for spatial in sorted({c[4] for c in SPATIAL_CASES}):
+        cases = [c for c in SPATIAL_CASES if c[4] == spatial]
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn(spatial, spatial_rank, [(c[0], c[1], hosts[c[0]]) for c in cases],
+                          device="cuda", backend="gloo", spatial=spatial, timeout=600)
+        except RuntimeError as e:
+            fail.check(False, f"spatial {spatial}: a rank failed: {e}")
+            continue
+        seconds = time.perf_counter() - t0
+        for case, model, n, hw, _ in cases:
+            got = [r[case] for r in ranks]
+            ref = spatial_single(model, hosts[case])
+            per_forward = LAUNCHES_PER_FORWARD if model == "footprint" else SEG_LAUNCHES_PER_FORWARD
+            f32 = [g["f32"] for g in got]
+            fail.check(all(g["losses"] == f32[0]["losses"] for g in f32),
+                       f"spatial {case}: the ranks' losses differ")
+            loss_err = max(abs(f32[0]["losses"][k] - v) for k, v in ref["f32"].items())
+            fail.check(sorted(f32[0]["losses"]) == sorted(ref["f32"]) and all(
+                abs(f32[0]["losses"][k] - v) <= 1e-5 + 1e-5 * abs(v)
+                for k, v in ref["f32"].items()),
+                f"spatial {case}: f32 losses {loss_err} from the single process")
+            whole = np.concatenate([g["1/1"] for g in got], 1)
+            mae = float(np.abs(whole - ref["1/1"]).mean()) if whole.shape == ref[
+                "1/1"].shape else float("inf")
+            fail.check(mae < 1e-4, f"spatial {case}: '1/1' MAE {mae} to the single process")
+            routes = {"f32": [(g["f32"]["launches"], g["f32"]["bf16_launches"]) for g in got]}
+            fail.check(routes["f32"] == [(per_forward, 0)] * spatial
+                       and [g["forward_launches"] for g in got] == [per_forward] * spatial,
+                       f"spatial {case}: f32 launches per rank {routes['f32']}")
+            checks = {"losses_max_abs_err": loss_err, "out_1_1_mae": mae}
+            if "bf16" in ref:
+                bf16 = [g["bf16"] for g in got]
+                routes["bf16"] = [(b["launches"], b["bf16_launches"]) for b in bf16]
+                fail.check(routes["bf16"] == [(per_forward, per_forward)] * spatial,
+                           f"spatial {case}: bf16 launches per rank {routes['bf16']}")
+                gaps = {k: (abs(bf16[0]["losses"][k] - v), abs(ref["bf16"][k] - v))
+                        for k, v in ref["f32"].items()}
+                fail.check(all(b["losses"] == bf16[0]["losses"] for b in bf16)
+                           and all(own <= 2 * single + 1e-3 for own, single in gaps.values()),
+                           f"spatial {case}: bf16 gaps to the f32 eval {gaps}")
+                checks["bf16_worst_gap_to_f32"] = max(own for own, _ in gaps.values())
+                checks["single_bf16_worst_gap_to_f32"] = max(s for _, s in gaps.values())
+            seams = {name: [g[name]["seam_sites"] for g in got] for name in routes}
+            for name, per_rank in seams.items():
+                fail.check(all(c["ok"] and c["calls"] == per_forward for c in per_rank),
+                           f"spatial {case} {name}: seam sites {per_rank}")
+            worst = max(worst, *(c["max_abs_err"] for c in seams["f32"]))
+            launches += sum(g["forward_launches"] + sum(g[name]["launches"] for name in routes)
+                            for g in got)
+            emit("spatial", case=case, model=f"{model}-34", batch=n, shape=list(hw),
+                 spatial=spatial, world=spatial, backend="gloo", device="cuda:0 (all ranks)",
+                 rows_per_rank=[g["rows"] for g in got], loss_bar="1e-5 + 1e-5|ref|",
+                 mae_bar=1e-4, **checks, launches_per_rank=routes,
+                 exchanges_per_eval_step=[g["f32"]["exchanges"] for g in got],
+                 seam_sites={name: [{"max_abs_err": c["max_abs_err"], "inputs": c["inputs"]}
+                                    for c in per_rank] for name, per_rank in seams.items()},
+                 seconds_spawn=seconds)
+            emit("spatial_times", case=case, card=smi, batch=n, shape=list(hw),
+                 spatial=spatial, single_process=ref["times"],
+                 ranks=[g["times"] for g in got],
+                 method="f32 eval step, mean of 3 after 1 (CUDA events); peak allocated "
+                        "above the allocation before the step; the exchanges' host spans "
+                        "from one profiled step", claim=None)
+    return launches, worst
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3801,6 +4094,7 @@ def main():
         train_launches += bf16_launches
         timed("train_bf16_times", phase_train_bf16_times, fail, host, run)
         dp_launches = timed("dp", phase_dp, fail, run, workdir, host, f32_check)
+        spatial_launches, spatial_worst = timed("spatial", phase_spatial, fail, smi)
         export_launches, a16, export_weights = timed("export", phase_export, fail, workdir)
         timed("export_times", phase_export_times, fail, workdir, a16, export_weights, run)
     with tempfile.TemporaryDirectory() as workdir:
@@ -3821,8 +4115,9 @@ def main():
          forward_ms_per_step=2 * bf16_sites["forward_ms_per_step"],
          backward_ms_per_step=2 * bf16_sites["backward_ms_per_step"],
          source="phase seg_train_times' per-site bf16 times at batch 12, x2 decoders")
-    launches += (train_launches + dp_launches + export_launches + dump_launches
-                 + seg_launches + seg_train_launches)
+    launches += (train_launches + dp_launches + spatial_launches + export_launches
+                 + dump_launches + seg_launches + seg_train_launches)
+    max_abs = max(max_abs, spatial_worst)
     emit("seconds", **seconds)
 
     if fail:

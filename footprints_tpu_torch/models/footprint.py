@@ -14,6 +14,12 @@ The public forward keeps the JAX layout: NHWC ``[N,H,W,3]`` in, NHWC
 ``[N,H,W,4]`` maps out.  Inside, tensors are NCHW views of channels_last
 memory, so both permutes are views.
 
+Inside ``parallel.halo.shard_rows`` the network runs on a row shard of the
+image (the rows of every activation that the rank owns, with halo
+exchanges at the ops that read across rows: nn/), and returns its rows of
+each map.  A rank's rows are a multiple of 32, so the packed heads, which
+are pixel-local, pack them as the unsharded heads pack the same rows.
+
 The packed training heads (``s2d_head``, ``p4_head``) keep the JAX
 package's layouts (footprints_tpu/models/footprint.py), which it computes
 in s2d form to spare the TPU lane-narrow relayouts.  The card has no such

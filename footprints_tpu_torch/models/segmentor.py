@@ -18,6 +18,11 @@ Parameter names follow the reference's state_dict (``encoder.*``,
 
 NHWC ``[N,H,W,3]`` in, a list of 4 NHWC ``[N,h,w,1]`` maps out, as in the
 JAX package; inside, NCHW views of channels_last memory.
+
+On a row shard (``parallel.halo.shard_rows``) the encoder and decoder
+exchange halos as the FootprintNetwork's do, and the PSP, whose adaptive
+pools span the shards, gathers the whole 1/32 map (``[N,512,H/32,W/32]``:
+60 KB an image at 192x640), runs its branches on it and keeps its own rows.
 """
 
 import torch
@@ -25,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..nn import resnet
+from ..parallel.halo import gather_rows, own_rows, row_mesh
 from .footprint import SCALES, SkipDecoder
 
 PSP_POOL_SIZES = (1, 2, 4, 6)
@@ -48,9 +54,13 @@ class PSP(nn.Module):
             setattr(self, f"block{i}", PSPBlock(s, feats))
 
     def forward(self, x):
+        mesh, rows = row_mesh(self), x.shape[2]
+        if mesh is not None:
+            x = gather_rows(x, mesh)
         p1, p2, p4, p6 = (getattr(self, f"block{i}")(x)
                           for i in range(1, len(PSP_POOL_SIZES) + 1))
-        return torch.cat([x, p6, p4, p2, p1], 1)
+        y = torch.cat([x, p6, p4, p2, p1], 1)
+        return y if mesh is None else own_rows(y, rows, mesh)
 
 
 class SegSkipDecoder(SkipDecoder):

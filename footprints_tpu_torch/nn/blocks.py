@@ -17,13 +17,21 @@ tail ConvBlock (``decoder_tail``), 5 launches per decoder per forward.  Their
 backward is cuDNN's (the op's registered autograd).  The other convs are
 ``F.pad(reflect)`` + ``F.conv2d``.  Tensors are NCHW views of channels_last
 memory; the kernel sites permute them to NHWC views.
+
+Inside ``parallel.halo.shard_rows`` each block runs on a row shard: the
+reflect convs and the bilinear heads exchange their halo rows
+(nn/layers.py), and each kernel site runs the kernel in its own reflect
+mode on its input extended by one neighbour row per seam, then drops the
+output rows that the seam's reflection made (ops/fused_conv.py: ``halo``).
+The nearest x2 upsample and the concat are pixel-local.
 """
 
 import torch
 import torch.nn as nn
 
 from ..ops.fused_conv import (conv_reflect_fused, conv_reflect_res_fused,
-                              up_conv_fused)
+                              crop_rows, up_conv_fused)
+from ..parallel.halo import exchange_rows, row_mesh, seam_rows
 from .layers import (conv2d, elu, reflect_pad, sigmoid, upsample_bilinear,
                      upsample_nearest)
 
@@ -38,6 +46,15 @@ def _nchw(y):
     return y.permute(0, 3, 1, 2)
 
 
+def _site_input(x, mesh):
+    """A kernel site's NHWC input and its ``halo``: on a row shard, the
+    NCHW ``x`` with one neighbour row on each seam side and the rows it
+    gained (above, below); otherwise ``x`` and (0, 0)."""
+    if mesh is None:
+        return _nhwc(x), (0, 0)
+    return _nhwc(exchange_rows(x, 1, 1, mesh)), seam_rows(mesh, 1, 1)
+
+
 class ConvBlock(nn.Module):
     def __init__(self, in_ch, out_ch):
         super().__init__()
@@ -49,8 +66,15 @@ class ConvBlock(nn.Module):
         self.bn2.requires_grad_(False)
 
     def forward(self, x):
-        x = elu(conv2d(reflect_pad(x, 1), self.conv1.weight, self.conv1.bias))
-        return elu(conv2d(reflect_pad(x, 1), self.conv2.weight, self.conv2.bias))
+        # on a row shard the padded input goes to cuDNN in channels_last:
+        # at the decoder's 1/4-scale shard shapes ([4,128|64,26|18,162],
+        # 192x640 over 2 and 3 shards) its f32 heuristics pick, for NCHW, an
+        # algorithm with a 2-4 GiB workspace and ~50x the time; the heads'
+        # convs (2 output channels) keep NCHW, whose workspace is the
+        # smaller there (chip_smoke.py:spatial_cudnn_probe, H100)
+        mesh, fmt = row_mesh(self), torch.channels_last
+        x = elu(conv2d(reflect_pad(x, 1, mesh, fmt), self.conv1.weight, self.conv1.bias))
+        return elu(conv2d(reflect_pad(x, 1, mesh, fmt), self.conv2.weight, self.conv2.bias))
 
 
 class ConvUpsampleAndConcatBlock(nn.Module):
@@ -79,11 +103,20 @@ class ConvUpsampleAndConcatBlock(nn.Module):
         c_up = x.shape[1]
         conv1 = self.post_concat_conv.conv1
         conv2 = self.post_concat_conv.conv2
+        mesh = row_mesh(self)
         # the weight halves are input-channel slice views: no copy
-        r = up_conv_fused(_nhwc(x), conv1.weight[:, :c_up], None, act="none")
-        y = conv_reflect_res_fused(_nhwc(skip), conv1.weight[:, c_up:],
-                                   conv1.bias, r, act="elu")
-        return _nchw(conv_reflect_fused(y, conv2.weight, conv2.bias, act="elu"))
+        x, halo = _site_input(x, mesh)
+        r = up_conv_fused(x, conv1.weight[:, :c_up], None, act="none")
+        if mesh is not None:
+            # the residual covers the skip's extended rows: of the 2 output
+            # rows per halo row, the outer one read the reflected edge
+            r = crop_rows(r, *halo).contiguous()
+        skip, halo = _site_input(skip, mesh)
+        y = conv_reflect_res_fused(skip, conv1.weight[:, c_up:], conv1.bias, r, act="elu",
+                                   halo=halo)
+        if mesh is not None:
+            y, halo = _site_input(_nchw(y), mesh)
+        return _nchw(conv_reflect_fused(y, conv2.weight, conv2.bias, act="elu", halo=halo))
 
 
 class OutConvBlock(nn.Module):
@@ -94,19 +127,24 @@ class OutConvBlock(nn.Module):
         self.apply_sigmoid = apply_sigmoid
 
     def forward(self, x):
-        x = conv2d(reflect_pad(x, 1), self.conv1.weight, self.conv1.bias)
+        mesh = row_mesh(self)
+        x = conv2d(reflect_pad(x, 1, mesh), self.conv1.weight, self.conv1.bias)
         if self.apply_sigmoid:
             x = sigmoid(x)
         if self.scale != 1:
-            x = upsample_bilinear(x, self.scale)
+            x = upsample_bilinear(x, self.scale, mesh)
         return x
 
 
 def decoder_tail(conv_block, out_block, x):
     """nearest_up_2x -> ConvBlock -> OutConvBlock, with the ConvBlock's two
     convs in the CUDA kernel (the first one upsamples as it reads)."""
-    y = up_conv_fused(_nhwc(x), conv_block.conv1.weight, conv_block.conv1.bias,
-                      act="elu")
+    mesh = row_mesh(conv_block)
+    x, halo = _site_input(x, mesh)
+    y = up_conv_fused(x, conv_block.conv1.weight, conv_block.conv1.bias, act="elu",
+                      halo=halo)
+    if mesh is not None:
+        y, halo = _site_input(_nchw(y), mesh)
     y = conv_reflect_fused(y, conv_block.conv2.weight, conv_block.conv2.bias,
-                           act="elu")
+                           act="elu", halo=halo)
     return out_block(_nchw(y))

@@ -12,13 +12,41 @@ Contracts, each tested against the JAX package in tests/test_torch_layers.py:
 
 The model keeps activations in ``torch.channels_last`` memory, so these
 NCHW views hold NHWC bytes; every function here accepts either format.
+
+Row sharding: ``conv2d``, ``reflect_pad``, ``max_pool_3x3_s2`` and
+``upsample_bilinear`` take a spatial ``mesh`` (parallel/halo.py); ``x`` is
+then this rank's row shard, extended by the rows the op's window reads
+across each seam (a k x k conv of stride s and padding p: p above, k - s - p
+below; the pool 1 / 0; reflect 1 / 1; bilinear 1 / 1 of its input), with
+the op's own padding only at the image's true top and bottom, and the
+result is this rank's rows of the unsharded result.  With ``mesh=None``
+each runs its unsharded code.
 """
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-conv2d = F.conv2d
+from ..parallel.halo import edge_rows, exchange_rows, halo_rows, seam_rows
+
+
+def _halo(x, above, below, mesh, value=0.0):
+    """The row shard ``x`` with ``above``/``below`` more rows: a
+    neighbour's at a seam, ``value`` beyond the image's edge."""
+    top, bottom = edge_rows(mesh, above, below)
+    x = exchange_rows(x, above, below, mesh)
+    if top or bottom:
+        x = F.pad(x, (0, 0, top, bottom), value=value)
+    return x
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, mesh=None):
+    """``F.conv2d`` (square stride and padding, zero-padded); on a row
+    shard with a spatial ``mesh``."""
+    if mesh is None:
+        return F.conv2d(x, weight, bias, stride, padding)
+    below = max(weight.shape[2] - stride - padding, 0)
+    return F.conv2d(_halo(x, padding, below, mesh), weight, bias, stride, (0, padding))
 
 
 def batch_norm(x, weight, bias, running_mean, running_var, eps=1e-5, *,
@@ -94,14 +122,41 @@ def _global_batch_norm(x, weight, bias, running_mean, running_var, eps, momentum
     return y.to(x.dtype)
 
 
-def reflect_pad(x, pad=1):
-    """Reflection padding of the two spatial dims."""
-    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+def reflect_pad(x, pad=1, mesh=None, memory_format=torch.contiguous_format):
+    """Reflection padding of the two spatial dims.  On a row shard with a
+    spatial ``mesh``: the neighbours' rows at a seam, the reflection at the
+    image's edge, written into one new tensor in ``memory_format`` (the
+    same values as ``F.pad`` of the exchanged rows, without the joined
+    copy between them)."""
+    if mesh is None:
+        return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    top, bottom = halo_rows(x, pad, pad, mesh)
+    n, c, h, w = x.shape
+    out = torch.empty((n, c, h + 2 * pad, w + 2 * pad), dtype=x.dtype, device=x.device,
+                      memory_format=memory_format)
+    rows = out[:, :, :, pad:pad + w]
+    rows[:, :, pad:pad + h] = x
+    if top is not None:
+        rows[:, :, :pad] = top
+    if bottom is not None:
+        rows[:, :, pad + h:] = bottom
+    # the image's edge reflects the rows written above, the neighbour's
+    # among them where this rank holds fewer rows than the pad reaches
+    if top is None:
+        rows[:, :, :pad] = rows[:, :, pad + 1:2 * pad + 1].flip(2)
+    if bottom is None:
+        rows[:, :, pad + h:] = rows[:, :, h - 1:h + pad - 1].flip(2)
+    out[..., :pad] = out[..., pad + 1:2 * pad + 1].flip(3)
+    out[..., pad + w:] = out[..., w - 1:w + pad - 1].flip(3)
+    return out
 
 
-def max_pool_3x3_s2(x):
-    """3x3/stride-2/pad-1 max pool (the ResNet stem pool)."""
-    return F.max_pool2d(x, 3, stride=2, padding=1)
+def max_pool_3x3_s2(x, mesh=None):
+    """3x3/stride-2/pad-1 max pool (the ResNet stem pool); on a row shard
+    with a spatial ``mesh``."""
+    if mesh is None:
+        return F.max_pool2d(x, 3, stride=2, padding=1)
+    return F.max_pool2d(_halo(x, 1, 0, mesh, -float("inf")), 3, stride=2, padding=(0, 1))
 
 
 def upsample_nearest(x, scale=2):
@@ -109,13 +164,23 @@ def upsample_nearest(x, scale=2):
     return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
-def upsample_bilinear(x, scale):
+def upsample_bilinear(x, scale, mesh=None):
     """Bilinear upsample with half-pixel centres (align_corners=False).
 
     A bf16 ``x`` is upsampled in f32 and rounded back to bf16: the same
     values, but the backward then sums the up to (2 scale)^2 contributions
     to each input pixel in f32.  CUDA's bf16 backward adds them with bf16
-    atomics, which put the gradient of the x8 head about 2% off."""
+    atomics, which put the gradient of the x8 head about 2% off.
+
+    On a row shard with a spatial ``mesh``: upsampled with one neighbour
+    row at each seam, whose ``scale`` output rows are dropped; at the
+    image's edge the interpolation clamps as it does unsharded.  An integer
+    shift of the source grid, so the kept rows are the unsharded ones bit
+    for bit (a power-of-2 ``scale``)."""
+    if mesh is not None:
+        above, below = seam_rows(mesh, 1, 1)
+        y = upsample_bilinear(exchange_rows(x, 1, 1, mesh), scale)
+        return y[:, :, scale * above:y.shape[2] - scale * below]
     if x.dtype == torch.bfloat16:
         return F.interpolate(x.float(), scale_factor=scale, mode="bilinear",
                              align_corners=False).to(x.dtype)

@@ -13,13 +13,17 @@ Pallas kernel here either.  BN follows ``module.training``: batch statistics
 and running-stat updates after ``.train()``, running statistics after
 ``.eval()``.  ``num_batches_tracked`` is not advanced (momentum is fixed).
 Under data parallelism train-mode BN takes its statistics over the global
-batch (parallel/mesh.py:sync_batch_norm).
+batch (parallel/mesh.py:sync_batch_norm).  Inside ``parallel.halo.
+shard_rows`` the encoder runs on a row shard: the 3x3 and 7x7 convs and the
+pool exchange their halo rows (nn/layers.py); BN (eval), ReLU and the 1x1
+convs are pixel-local.
 """
 
 import torch.nn as nn
 
+from ..parallel.halo import row_mesh
 from . import init as nn_init
-from .layers import batch_norm, max_pool_3x3_s2, relu
+from .layers import batch_norm, conv2d, max_pool_3x3_s2, relu
 
 # depth -> (block kind, blocks per stage)
 ARCHS = {
@@ -45,6 +49,14 @@ def _bn(x, bn):
                       group=getattr(bn, "dp_group", None))
 
 
+def _conv(conv, x):
+    """``conv(x)``; on a row shard, with the halo rows its window reads."""
+    mesh = row_mesh(conv)
+    if mesh is None:
+        return conv(x)
+    return conv2d(x, conv.weight, conv.bias, conv.stride[0], conv.padding[0], mesh)
+
+
 def _downsample(c_in, c_out, stride):
     if stride == 1 and c_in == c_out:
         return None
@@ -62,8 +74,8 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(c_in, width, stride)
 
     def forward(self, x):
-        y = relu(_bn(self.conv1(x), self.bn1))
-        y = _bn(self.conv2(y), self.bn2)
+        y = relu(_bn(_conv(self.conv1, x), self.bn1))
+        y = _bn(_conv(self.conv2, y), self.bn2)
         if self.downsample is not None:
             x = _bn(self.downsample[0](x), self.downsample[1])
         return relu(y + x)
@@ -83,7 +95,7 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         y = relu(_bn(self.conv1(x), self.bn1))
-        y = relu(_bn(self.conv2(y), self.bn2))
+        y = relu(_bn(_conv(self.conv2, y), self.bn2))
         y = _bn(self.conv3(y), self.bn3)
         if self.downsample is not None:
             x = _bn(self.downsample[0](x), self.downsample[1])
@@ -122,9 +134,9 @@ class ResnetEncoder(nn.Module):
     def forward(self, x):
         """x: NCHW in [0,1].  Returns the 5 feature maps (NCHW)."""
         x = (x - 0.45) / 0.225
-        x = relu(_bn(self.layer0[0](x), self.layer0[1]))
+        x = relu(_bn(_conv(self.layer0[0], x), self.layer0[1]))
         features = [x]
-        x = max_pool_3x3_s2(x)
+        x = max_pool_3x3_s2(x, row_mesh(self))
         stages = (self.layer1[1], self.layer2, self.layer3, self.layer4)
         for stage in stages:
             for blk in stage:

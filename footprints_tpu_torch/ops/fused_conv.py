@@ -275,17 +275,33 @@ torch.library.register_fake("footprints::fused_conv3x3", _fake, lib=_LIB)
 # The three wrappers mirror the JAX package's one for one
 # (footprints_tpu/ops/pallas_conv.py: up_conv_s2d_fused, s2d_conv_res_fused,
 # s2d_conv_fused), in plain full-resolution NHWC instead of s2d layout.
+#
+# ``halo`` = (above, below): on a row shard (parallel/halo.py), the rows by
+# which x extends this rank's rows with its neighbours' at a seam (0 at the
+# image's true edge).  The kernel runs unchanged, in its own reflect mode,
+# on the extended x: output rows that read past x's ends are wrong at a
+# seam (a reflection of the neighbour's row where the image goes on), and
+# are dropped, 1 per halo row at 'reflect' and 2 at 'up2_reflect'; no kept
+# row reads them.  At the image's edge the reflection is the image's own.
 
-def up_conv_fused(x, w, b, act="elu"):
+def crop_rows(y, above, below):
+    """NHWC ``y`` without its first ``above`` and last ``below`` rows."""
+    if above == below == 0:
+        return y
+    return y[:, above:y.shape[1] - below]
+
+
+def up_conv_fused(x, w, b, act="elu", halo=(0, 0)):
     """act(conv3x3(reflect_pad(nearest_up_2x(x))) + b): [N,H,W,C] -> [N,2H,2W,Co]."""
-    return _fused(x, w, b, None, "up2_reflect", act)
+    return crop_rows(_fused(x, w, b, None, "up2_reflect", act), 2 * halo[0], 2 * halo[1])
 
 
-def conv_reflect_fused(x, w, b, act="elu"):
+def conv_reflect_fused(x, w, b, act="elu", halo=(0, 0)):
     """act(conv3x3(reflect_pad(x)) + b)."""
-    return _fused(x, w, b, None, "reflect", act)
+    return crop_rows(_fused(x, w, b, None, "reflect", act), *halo)
 
 
-def conv_reflect_res_fused(x, w, b, residual, act="elu"):
-    """act(conv3x3(reflect_pad(x)) + b + residual) (block4 post conv1)."""
-    return _fused(x, w, b, residual, "reflect", act)
+def conv_reflect_res_fused(x, w, b, residual, act="elu", halo=(0, 0)):
+    """act(conv3x3(reflect_pad(x)) + b + residual) (block4 post conv1); the
+    residual covers x's rows, halo included."""
+    return crop_rows(_fused(x, w, b, residual, "reflect", act), *halo)

@@ -5,13 +5,14 @@
                dryrun_multichip(2, device='cuda')"
 
 ``spawn(n, fn, ...)`` starts n processes, joins them in one gloo (or
-NCCL) group on localhost, runs ``fn(mesh, *args)`` in each and returns the
-ranks' results in rank order.  A rank that raises, dies or outlives
-``timeout`` fails the whole call: the other ranks are terminated and the
-call raises with the rank's traceback.  ``device="cuda"`` (the default;
-it raises without CUDA) puts every rank on ``cuda:0`` (several ranks on
-one card need gloo: NCCL refuses two ranks on one device); the CPU runs
-only when asked for, as the tests do.
+NCCL) group on localhost, runs ``fn(mesh, *args)`` in each (``spatial=k``:
+on ``make_mesh(spatial=k)``) and returns the ranks' results in rank
+order.  A rank that raises, dies or outlives ``timeout`` fails the whole
+call: the other ranks are terminated and the call raises with the rank's
+traceback.  ``device="cuda"`` (the default; it raises without CUDA) puts
+every rank on ``cuda:0`` (several ranks on one card need gloo: NCCL
+refuses two ranks on one device); the CPU runs only when asked for, as the
+tests do.
 
 ``dryrun_multichip`` runs one data-parallel FootprintNetwork step in f32,
 then one in bf16 with the packed heads, their targets fed through the
@@ -52,10 +53,10 @@ def free_port():
         return s.getsockname()[1]
 
 
-def _rank_main(rank, n, port, backend, device, fn, args, results):
+def _rank_main(rank, n, port, backend, device, spatial, fn, args, results):
     try:
         initialize(backend, f"tcp://localhost:{port}", n, rank, device=device)
-        out = fn(make_mesh(device), *args)
+        out = fn(make_mesh(device, spatial=spatial), *args)
         results.put((rank, None, out))
     except BaseException:
         results.put((rank, traceback.format_exc(), None))
@@ -63,10 +64,11 @@ def _rank_main(rank, n, port, backend, device, fn, args, results):
         shutdown()
 
 
-def spawn(n, fn, *args, device="cuda", backend="gloo", timeout=900):
-    """``fn(mesh, *args)`` in each of n new processes; returns the results
-    (picklable values: numpy, not tensors) in rank order.  Raises without
-    CUDA unless ``device`` is the CPU."""
+def spawn(n, fn, *args, device="cuda", backend="gloo", timeout=900, spatial=1):
+    """``fn(mesh, *args)`` in each of n new processes, on a mesh of
+    ``spatial`` row shards; returns the results (picklable values: numpy,
+    not tensors) in rank order.  Raises without CUDA unless ``device`` is
+    the CPU."""
     device = select_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", 0)
@@ -74,7 +76,7 @@ def spawn(n, fn, *args, device="cuda", backend="gloo", timeout=900):
     results = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, n, port, backend, device, fn, args, results))
+                         args=(r, n, port, backend, device, spatial, fn, args, results))
              for r in range(n)]
     for p in procs:
         p.start()

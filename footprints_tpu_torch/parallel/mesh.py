@@ -19,10 +19,17 @@ step on its shard, with the collectives written out:
 Host-side agreement (the preemption flag, the checkpoint barrier) goes over
 a gloo side group, so it syncs no device.
 
-JAX's ``replicated`` and ``batch_sharded`` name ``NamedSharding``s and have
-no counterpart: a tensor here is either a rank's full replica or its shard.
-The ``spatial`` axis (image rows over cards, with a halo exchange at every
-conv) is not ported yet.
+The ``spatial`` axis (``make_mesh(spatial=k)``) lays the ranks out as the
+JAX mesh's ``(data, spatial)`` device array, ``reshape(world // k, k)``:
+rank ``r`` holds the images of data index ``r // k`` and the rows of row
+index ``r % k``, evaluated with a halo exchange at every op that reads
+across rows (parallel/halo.py).  Only the eval step runs row-sharded; a
+train step refuses a spatial mesh.
+
+JAX's ``replicated`` and ``batch_sharded`` name ``NamedSharding``s; here a
+tensor is a rank's full replica (params, BN state, the eval step's losses)
+or its shard of the batch (``shard_batch``: dim 0 over data, and on a
+spatial mesh dim 1, the image rows, over spatial).
 """
 
 import dataclasses
@@ -36,43 +43,89 @@ import torch.nn as nn
 from ..utils import select_device
 from .distributed import host_batch_slice, local_device
 
+# the JAX mesh's axis names (footprints_tpu/parallel/mesh.py)
+DATA_AXIS = "data"
+SPATIAL_AXIS = "spatial"
+# the encoder's total stride: a rank's first row must be a multiple of it,
+# so that every pyramid level of every rank lines up with the global grid
+ROW_ALIGN = 32
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in the data-parallel world.  ``group`` is None in
-    a single process, and every collective below is then a no-op."""
+    """This rank's place in the world.  ``group`` is None in a single
+    process, and every collective below is then a no-op.  On a spatial
+    mesh (``spatial > 1``) the rank's row index is ``rank % spatial``, its
+    ``spatial_group`` the ranks that share its images (one row shard each)
+    and its ``data_group`` the ranks that share its row index."""
     world_size: int
     rank: int
     device: torch.device
-    group: object = None  # the process group of the all-reduces
+    group: object = None  # the process group of the all-reduces (the world)
     side_group: object = None  # gloo, for host-side agreement
+    spatial: int = 1
+    spatial_group: object = None
+    data_group: object = None
 
     @property
     def distributed(self):
         return self.group is not None
 
     @property
+    def row_rank(self):
+        """This rank's row index: its shard of the image rows."""
+        return self.rank % self.spatial
+
+    @property
     def shard(self):
-        """(rank, world size): a DataLoader's ``shard``."""
-        return self.rank, self.world_size
+        """(data index, number of data indices): a DataLoader's ``shard``;
+        (rank, world size) when ``spatial`` is 1."""
+        return self.rank // self.spatial, self.world_size // self.spatial
 
     def __str__(self):
         backend = dist.get_backend(self.group) if self.distributed else "no group"
-        return f"rank {self.rank} of {self.world_size} on {self.device} over {backend}"
+        rows = (f", row shard {self.row_rank} of {self.spatial}" if self.spatial > 1
+                else "")
+        return (f"rank {self.rank} of {self.world_size}{rows} on {self.device} "
+                f"over {backend}")
 
 
 def make_mesh(device=None, *, spatial: int = 1) -> Mesh:
     """The mesh of this process: the group that ``initialize`` set up, or a
     world of one.  ``device`` (default ``cuda``) goes through
-    ``local_device`` and ``utils.select_device``.  Opening the side group is
-    a collective: every rank calls ``make_mesh`` once, in the same order."""
-    if spatial != 1:
-        raise NotImplementedError("spatial sharding is not ported yet")
+    ``local_device`` and ``utils.select_device``.  ``spatial=k`` shards the
+    image rows over k ranks, laid out as JAX's ``make_mesh(devices,
+    spatial=k)``; the world must divide by k.  Opening the groups is a
+    collective: every rank calls ``make_mesh`` once, in the same order."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if spatial < 1 or world % spatial:
+        raise ValueError(f"{world} devices not divisible by spatial={spatial}")
     device = select_device(local_device("cuda" if device is None else device))
     if not dist.is_initialized():
         return Mesh(1, 0, device)
-    return Mesh(dist.get_world_size(), dist.get_rank(), device, dist.group.WORLD,
-                dist.new_group(backend="gloo"))
+    rank, side = dist.get_rank(), dist.new_group(backend="gloo")
+    if spatial == 1:
+        return Mesh(world, rank, device, dist.group.WORLD, side, data_group=dist.group.WORLD)
+    layout = np.arange(world).reshape(world // spatial, spatial)
+    data_groups = [dist.new_group(column.tolist()) for column in layout.T]
+    spatial_groups = [dist.new_group(row.tolist()) for row in layout]
+    return Mesh(world, rank, device, dist.group.WORLD, side, spatial,
+                spatial_groups[rank // spatial], data_groups[rank % spatial])
+
+
+def row_split(mesh: Mesh, height: int):
+    """(first row, rows) of this rank's shard of ``height`` image rows.
+    Rows split evenly, as JAX's ``batch_sharded`` splits them, and each
+    rank's first row must be a multiple of ROW_ALIGN (the encoder's total
+    stride): ``height % (32 * spatial) == 0``.  JAX pads an uneven split;
+    this raises instead."""
+    if height % (ROW_ALIGN * mesh.spatial):
+        raise ValueError(f"row sharding needs the image height to be a multiple of "
+                         f"{ROW_ALIGN} x spatial = {ROW_ALIGN * mesh.spatial}, so that each "
+                         f"of the {mesh.spatial} row shards starts at a multiple of the "
+                         f"encoder's stride {ROW_ALIGN}; got {height}")
+    rows = height // mesh.spatial
+    return mesh.row_rank * rows, rows
 
 
 def _group_for(mesh, tensor):
@@ -101,11 +154,27 @@ def replicate_tree(mesh: Mesh, module_or_optimizer):
 
 
 def shard_batch(mesh: Mesh, host_batch):
-    """This rank's rows of a global host batch (a dict of numpy arrays), as
-    tensors on its device."""
+    """This rank's shard of a global host batch (a dict of numpy arrays),
+    as tensors on its device: its slice of dim 0 and, on a spatial mesh,
+    its rows of dim 1 (the image rows, ``row_split`` of ``image``'s height;
+    a packed target's rows in proportion; a 1-D array whole), as the
+    addressable shards of JAX's ``shard_batch`` on the same mesh."""
     n = len(next(iter(host_batch.values())))
-    start, per = host_batch_slice(n, mesh.world_size, mesh.rank)
-    return {k: torch.from_numpy(np.ascontiguousarray(v[start:start + per])).to(mesh.device)
+    data_index, data_size = mesh.shard
+    start, per = host_batch_slice(n, data_size, data_index)
+    rows = {}
+    if mesh.spatial > 1:
+        height = host_batch["image"].shape[1]
+        first, count = row_split(mesh, height)
+        for k, v in host_batch.items():
+            if v.ndim < 2:
+                continue
+            scale = height // v.shape[1]
+            if v.shape[1] * scale != height:
+                raise ValueError(f"{k}: {v.shape[1]} rows do not divide the image's {height}")
+            rows[k] = slice(first // scale, (first + count) // scale)
+    return {k: torch.from_numpy(np.ascontiguousarray(
+                v[start:start + per, rows.get(k, slice(None))])).to(mesh.device)
             for k, v in host_batch.items()}
 
 
@@ -133,6 +202,18 @@ def all_reduce_gradients(mesh: Mesh, params):
         flat.div_(mesh.world_size)
         parts = flat.split([g.numel() for g in grads])
         torch._foreach_copy_(grads, [t.view_as(g) for t, g in zip(parts, grads)])
+
+
+def mean_over_ranks(mesh: Mesh, losses):
+    """A dict of scalar tensors averaged over the ranks in one all-reduce
+    (``losses`` itself in a single process).  Every rank's value is a mean
+    over an equal shard of the global batch, so this is the global mean,
+    the same on every rank, as JAX returns it replicated."""
+    if not mesh.distributed:
+        return losses
+    names = list(losses)
+    means = all_reduce_mean(mesh, torch.stack([losses[k] for k in names]))
+    return dict(zip(names, means.unbind()))
 
 
 def all_reduce_mean(mesh: Mesh, tensor):

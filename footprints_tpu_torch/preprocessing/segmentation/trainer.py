@@ -37,10 +37,11 @@ from ...data.loader import DataLoader, DevicePrefetcher
 from ...models import Segmentor
 from ...ops.fused_conv import fused_conv3x3
 from ...parallel import (all_reduce_gradients, any_rank, barrier, initialize, make_mesh,
-                         rank_seed, replicate_tree, sync_batch_norm)
+                         mean_over_ranks, rank_seed, replicate_tree, sync_batch_norm)
+from ...parallel.halo import shard_rows, spatial_mesh
 from ...train.evaluator import Evaluator
 from ...train.step import (TrainStepConfig, forward_in, make_lr_schedule,
-                           make_optimizer, resolve_compute_dtype)
+                           make_optimizer, refuse_spatial, resolve_compute_dtype)
 from .datasets import ConcatDataset, get_dataset_class
 from .inference import load_segmentor_weights
 from .losses import compute_seg_losses
@@ -58,7 +59,8 @@ def build_train_step(net, optimizer, schedule, dtype=torch.float32, mesh=None):
     (``forward_in``).  ``metrics`` holds the detached device loss scalars
     and 'lr' (a float).  With a distributed ``mesh`` the batch is this
     rank's shard and the gradients are averaged over the ranks
-    (train/step.py:build_train_step)."""
+    (train/step.py:build_train_step); a spatial mesh raises."""
+    refuse_spatial(mesh)
     params = [p for p in net.parameters() if p.requires_grad]
 
     def step_fn(step, batch):
@@ -80,14 +82,19 @@ def build_train_step(net, optimizer, schedule, dtype=torch.float32, mesh=None):
     return step_fn
 
 
-def build_eval_step(net):
-    """Returns eval_fn(batch) -> losses: eval-mode BN, no gradient, f32."""
+def build_eval_step(net, mesh=None):
+    """Returns eval_fn(batch) -> losses: eval-mode BN, no gradient, f32.
+    With a ``mesh``, the batch is this rank's shard and the losses the
+    global batch's, on a spatial mesh computed row-sharded (train/step.py:
+    build_eval_step), as the JAX trainer's ``_build_eval_step``."""
+    rows = spatial_mesh(mesh)
 
     def eval_fn(batch):
         net.eval()
-        with torch.no_grad():
-            return compute_seg_losses(net(batch["image"]), batch["ground_mask"],
-                                      batch["labelled_pix"])
+        with torch.no_grad(), shard_rows(net, mesh):
+            losses = compute_seg_losses(net(batch["image"]), batch["ground_mask"],
+                                        batch["labelled_pix"], rows)
+        return losses if mesh is None else mean_over_ranks(mesh, losses)
 
     return eval_fn
 

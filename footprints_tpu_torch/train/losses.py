@@ -14,6 +14,13 @@ Per scale, four terms on the 4-channel prediction [N,H,W,4]:
 Keys: '<term>/<scale>' and 'loss/<scale>' per scale; 'loss' is the sum over
 scales divided by their number.
 
+Every term is a mean over all the pixels it is given.  Sharded over a mesh
+(the batch over data, the rows over spatial: parallel/mesh.py), each rank's
+term is its shard's sum over its count, and the shards are equal, so the
+global term, the global sum over the global count, is the mean of the
+ranks' terms: the eval step takes it with one all-reduce
+(parallel/mesh.py:mean_over_ranks).
+
 The packed training heads (models/footprint.py) arrive as '1/1_s2d'
 [N,H/2,W/2,16] and '1/2_s2d2' [N,H/4,W/4,64], contract channel c at lanes
 ``width*c .. width*c + width - 1`` (width 4 and 16).  Each term is pixelwise

@@ -4,6 +4,9 @@ One train step is forward (train-mode BN), the 4-scale loss, backward and
 the optimizer update, on one device; with a data-parallel mesh
 (parallel/mesh.py) each rank runs it on its shard, BN over the global
 batch, and the gradients are averaged over the ranks before the update.
+The eval step also takes a spatial mesh (``make_mesh(spatial=k)``): each
+rank then computes its rows of every activation (parallel/halo.py); the
+train step refuses one (row-sharded training is not ported yet).
 Loss scalars stay on the device; the trainer fetches them at its log
 cadence.  With ``compute_dtype`` bfloat16 the forward runs on bf16 compute
 copies of the f32 masters (``forward_in``); the loss, the gradients of the masters and Adam's state
@@ -21,7 +24,8 @@ import dataclasses
 
 import torch
 
-from ..parallel.mesh import all_reduce_gradients
+from ..parallel.halo import shard_rows, spatial_mesh
+from ..parallel.mesh import all_reduce_gradients, mean_over_ranks
 from .losses import LossConfig, compute_losses
 
 _F32 = (None, "float32", "f32")
@@ -117,6 +121,7 @@ def build_train_step(net, optimizer, config: TrainStepConfig, mesh=None):
     gradients are averaged over the ranks after backward (the metrics stay
     this rank's: the trainer averages them at its log cadence).
     """
+    refuse_spatial(mesh)
     schedule = make_lr_schedule(config)
     dtype, heads = config.dtype, config.heads
     params = [p for p in net.parameters() if p.requires_grad]
@@ -140,15 +145,30 @@ def build_train_step(net, optimizer, config: TrainStepConfig, mesh=None):
     return step_fn
 
 
-def build_eval_step(net, config: TrainStepConfig):
+def refuse_spatial(mesh):
+    """Raise for a spatial mesh: a train step needs the halo exchange's
+    adjoint and BN statistics over the row shards, not ported yet."""
+    if spatial_mesh(mesh) is not None:
+        raise NotImplementedError("spatial training is not ported yet")
+
+
+def build_eval_step(net, config: TrainStepConfig, mesh=None):
     """Returns eval_fn(batch) -> losses dict: eval-mode BN, no gradient, in
-    the training dtype and with its heads (the loss stays f32)."""
+    the training dtype and with its heads (the loss stays f32).
+
+    With a ``mesh`` the batch is this rank's shard (parallel/mesh.py:
+    shard_batch), on a spatial mesh its rows of every image, on which the
+    forward runs row-sharded; the losses are the global batch's, the same
+    on every rank (each term is a mean over equal shards, so the mean of
+    the ranks' terms), as JAX's ``build_eval_step(..., mesh)`` returns them
+    replicated."""
     dtype, heads = config.dtype, config.heads
 
     def eval_fn(batch):
         net.eval()
-        with torch.no_grad():
+        with torch.no_grad(), shard_rows(net, mesh):
             outputs = forward_in(net, batch["image"], dtype, heads)
-            return compute_losses(outputs, batch, config.loss)
+            losses = compute_losses(outputs, batch, config.loss)
+        return losses if mesh is None else mean_over_ranks(mesh, losses)
 
     return eval_fn

@@ -1,18 +1,23 @@
-"""Rank functions for the data-parallel tests (tests/test_torch_parallel.py),
-run by footprints_tpu_torch.parallel.dryrun.spawn in processes joined over
-gloo.  Imports no JAX: each returns numpy arrays and floats, which the test
-holds against the JAX package in its own process."""
+"""Rank functions for the data-parallel and row-sharding tests
+(tests/test_torch_parallel.py, tests/test_torch_spatial.py), run by
+footprints_tpu_torch.parallel.dryrun.spawn in processes joined over gloo.
+Imports no JAX: each returns numpy arrays and floats, which the test holds
+against the JAX package in its own process."""
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from footprints_tpu_torch.model_manager import ModelManager
-from footprints_tpu_torch.models import Segmentor
-from footprints_tpu_torch.nn import layers
+from footprints_tpu_torch.models import FootprintNetwork, Segmentor
+from footprints_tpu_torch.models.segmentor import PSP
+from footprints_tpu_torch.nn import blocks, layers
+from footprints_tpu_torch.ops import fused_conv as fc
 from footprints_tpu_torch.parallel import (all_reduce_mean, replica_digest, replicate_tree,
                                            shard_batch, sync_batch_norm)
+from footprints_tpu_torch.parallel.halo import exchange_rows, shard_rows
 from footprints_tpu_torch.preprocessing.segmentation import trainer as seg_trainer
+from footprints_tpu_torch.preprocessing.segmentation.losses import upsample_to
 from footprints_tpu_torch.train import step as tstep
 
 SEG_SEED = 10
@@ -108,3 +113,199 @@ def failing_rank(mesh):
     if mesh.rank == 1:
         raise ValueError("rank 1 fails on purpose")
     dist.barrier(group=mesh.group)
+
+
+# --- row (spatial) sharding: tests/test_torch_spatial.py ---------------------
+
+def layout_rank(mesh):
+    """This rank's place on the spatial mesh and its groups' ranks."""
+    return {"rank": mesh.rank, "row_rank": mesh.row_rank, "shard": mesh.shard,
+            "spatial": dist.get_process_group_ranks(mesh.spatial_group),
+            "data": dist.get_process_group_ranks(mesh.data_group)}
+
+
+def own_rows(mesh, t, dim=2):
+    """This rank's rows (dim ``dim``) of a whole tensor; all of it for no mesh."""
+    if mesh is None:
+        return t
+    per = t.shape[dim] // mesh.spatial
+    return t.narrow(dim, mesh.row_rank * per, per)
+
+
+def _randn(rng, *shape):
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+
+def _seeded(module, rng):
+    """``module`` with seeded weights of variance 1/fan-in, so activations
+    stay of order 1 through its layers."""
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(_randn(rng, *p.shape) / np.sqrt(np.prod(p.shape[1:]) or 1))
+    return module
+
+
+def op_cases(spatial):
+    """{name: fn(mesh) -> this rank's rows of the op's NCHW output} for each
+    op that reads across rows, on seeded inputs whose rows split into
+    ``spatial`` shards; ``fn(None)`` is the unsharded op on the whole input.
+    Every rank runs the cases in this order (each is a collective)."""
+    rng = np.random.RandomState(60 + spatial)
+    cl = torch.channels_last
+    image = _randn(rng, 2, 3, 4 * spatial, 12).contiguous(memory_format=cl)
+    x = _randn(rng, 2, 6, 4 * spatial, 10).contiguous(memory_format=cl)
+    low = _randn(rng, 2, 6, 3 * spatial, 5).contiguous(memory_format=cl)  # skip: 6 x 10
+    skip = _randn(rng, 2, 6, 6 * spatial, 10).contiguous(memory_format=cl)
+    psp_in = _randn(rng, 2, 8, 2 * spatial, 6).contiguous(memory_format=cl)
+    w7, w3, w1 = _randn(rng, 8, 3, 7, 7), _randn(rng, 6, 6, 3, 3), _randn(rng, 8, 6, 1, 1)
+    w_up, w_skip, w2 = _randn(rng, 6, 6, 3, 3), _randn(rng, 6, 6, 3, 3), _randn(rng, 6, 6, 3, 3)
+    b = _randn(rng, 6)
+    up_block = _seeded(blocks.ConvUpsampleAndConcatBlock(6, 6, 6, fused=True), rng)
+    tail = (_seeded(blocks.ConvBlock(6, 4), rng), _seeded(blocks.OutConvBlock(4, 2), rng))
+    heads = {s: _seeded(blocks.OutConvBlock(6, 2, s, True), rng) for s in (2, 4, 8)}
+    psp = _seeded(PSP(8), rng)
+
+    def nchw(y):
+        return y.permute(0, 3, 1, 2)
+
+    def site(mesh, t):
+        return blocks._site_input(own_rows(mesh, t), mesh)
+
+    def up_site(mesh):
+        lx, halo = site(mesh, low)
+        return nchw(fc.up_conv_fused(lx, w_up, b, halo=halo))
+
+    def reflect_site(mesh):
+        xx, halo = site(mesh, x)
+        return nchw(fc.conv_reflect_fused(xx, w2, b, halo=halo))
+
+    def residual_site(mesh):
+        lx, halo = site(mesh, low)
+        r = fc.crop_rows(fc.up_conv_fused(lx, w_up, None, act="none"), *halo).contiguous()
+        sx, halo = site(mesh, skip)
+        return nchw(fc.conv_reflect_res_fused(sx, w_skip, b, r, act="elu", halo=halo))
+
+    def module(mesh, m, *inputs):
+        with shard_rows(m, mesh):
+            return m(*(own_rows(mesh, t) for t in inputs))
+
+    def tail_fn(mesh):
+        with shard_rows(tail[0], mesh), shard_rows(tail[1], mesh):
+            return blocks.decoder_tail(*tail, own_rows(mesh, low))
+
+    cases = {
+        "stem_conv_7x7_s2": lambda m: layers.conv2d(own_rows(m, image), w7, None, 2, 3, m),
+        "max_pool_3x3_s2": lambda m: layers.max_pool_3x3_s2(own_rows(m, x), m),
+        "conv_3x3_s1": lambda m: layers.conv2d(own_rows(m, x), w3, None, 1, 1, m),
+        "conv_3x3_s2": lambda m: layers.conv2d(own_rows(m, x), w3, None, 2, 1, m),
+        "conv_1x1_s2": lambda m: layers.conv2d(own_rows(m, x), w1, None, 2, 0, m),
+        "reflect_conv_3x3": lambda m: layers.conv2d(layers.reflect_pad(own_rows(m, x), 1, m),
+                                                    w3, b),
+        "psp": lambda m: module(m, psp, psp_in),
+        "seg_upsample_to_x4": lambda m: nchw(upsample_to(
+            own_rows(m, low).permute(0, 2, 3, 1), 4 * own_rows(m, low).shape[2], 20, m)),
+        "fused_up2_reflect": up_site,
+        "fused_reflect": reflect_site,
+        "fused_reflect_residual": residual_site,
+        "block4_fused": lambda m: module(m, up_block, low, skip),
+        "decoder_tail": tail_fn,
+    }
+    for s, head in heads.items():
+        cases[f"bilinear_head_x{s}"] = lambda m, head=head: module(m, head, low)
+    return cases
+
+
+def ops_rank(mesh):
+    """Every op case on this rank's rows (numpy), and the exchanges made."""
+    before = exchange_rows.calls
+    with torch.no_grad():
+        out = {name: fn(mesh).contiguous().numpy() for name, fn in op_cases(mesh.spatial).items()}
+    return {"outputs": out, "exchanges": exchange_rows.calls - before}
+
+
+def _footprint_net(state_dict_path, device="cpu"):
+    net = FootprintNetwork(18)
+    net.load_state_dict(torch.load(state_dict_path), strict=True)
+    return net.to(device)
+
+
+BF16_HEADS = {"compute_dtype": "bfloat16", "s2d_head": True, "p4_head": True}
+
+
+def footprint_eval_rank(mesh, state_dict_path, batch):
+    """On this rank's shard of ``batch``, on its device: the
+    FootprintNetwork-18's spatial eval losses in f32 and in bf16 with the
+    packed heads, its rows of the f32 '1/1' map, and the kernel's launches
+    in each eval (0 on the CPU)."""
+    net = _footprint_net(state_dict_path, mesh.device)
+    local = shard_batch(mesh, batch)
+    out = {"shard": {k: v.cpu().numpy() for k, v in local.items()}}
+    for name, config in (("f32", tstep.TrainStepConfig()),
+                         ("bf16", tstep.TrainStepConfig(**BF16_HEADS))):
+        before = fc.fused_conv3x3.launches
+        losses = tstep.build_eval_step(net, config, mesh)(local)
+        out[name] = {k: float(v) for k, v in losses.items()}
+        out[f"{name}_launches"] = fc.fused_conv3x3.launches - before
+    with torch.no_grad(), shard_rows(net, mesh):
+        out["1/1"] = net(local["image"], scales=("1/1",))["1/1"].cpu().numpy()
+    return out
+
+
+def segmentor_eval_rank(mesh, state_dict_path, batch):
+    """The Segmentor-18 (PSP)'s spatial eval losses on this rank's shard."""
+    net = Segmentor(18, True)
+    net.load_state_dict(torch.load(state_dict_path), strict=True)
+    losses = seg_trainer.build_eval_step(net.to(mesh.device), mesh)(shard_batch(mesh, batch))
+    return {k: float(v) for k, v in losses.items()}
+
+
+class _OpShapes(torch.overrides.TorchFunctionMode):
+    """Records the input shape of each conv, pool and resize the model code
+    calls (not the calls inside them), and whether the PSP was running."""
+    OPS = {"conv2d", "max_pool2d", "_max_pool2d", "interpolate", "adaptive_avg_pool2d"}
+
+    def __init__(self):
+        super().__init__()
+        self.seen, self.in_psp = [], False
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", "")
+        if name in self.OPS:
+            self.seen.append((name, tuple(args[0].shape), self.in_psp))
+        return func(*args, **(kwargs or {}))
+
+
+def op_shapes_rank(mesh, footprint_path, segmentor_path, batch):
+    """The (op, input shape, in the PSP) of every conv, pool and resize of
+    one row-sharded FootprintNetwork-18 and Segmentor-18 (PSP) forward."""
+    local = shard_batch(mesh, batch)["image"]
+    seg = Segmentor(18, True)
+    seg.load_state_dict(torch.load(segmentor_path), strict=True)
+    recorder = _OpShapes()
+    seg.decoder.PSP.register_forward_pre_hook(lambda *a: setattr(recorder, "in_psp", True))
+    seg.decoder.PSP.register_forward_hook(lambda *a: setattr(recorder, "in_psp", False))
+    out = {}
+    for name, net in (("footprint", _footprint_net(footprint_path).eval()),
+                      ("segmentor", seg.eval())):
+        recorder.seen = []
+        with torch.no_grad(), shard_rows(net, mesh), recorder:
+            net(local)
+        out[name] = recorder.seen
+    return out
+
+
+def spatial_rank(mesh, footprint_path, segmentor_path, fp_batch=None, seg_batch=None,
+                 ops=False, shapes_batch=None):
+    """What test_torch_spatial.py reads from one spatial world: the layout,
+    then each part asked for: the FootprintNetwork's and the Segmentor's
+    eval steps on their batches, the op cases, the ops' input shapes."""
+    out = {"layout": layout_rank(mesh)}
+    if fp_batch is not None:
+        out["footprint"] = footprint_eval_rank(mesh, footprint_path, fp_batch)
+    if seg_batch is not None:
+        out["segmentor"] = segmentor_eval_rank(mesh, segmentor_path, seg_batch)
+    if ops:
+        out["ops"] = ops_rank(mesh)
+    if shapes_batch is not None:
+        out["shapes"] = op_shapes_rank(mesh, footprint_path, segmentor_path, shapes_batch)
+    return out

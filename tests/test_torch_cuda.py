@@ -7,8 +7,10 @@ FootprintNetwork's in f32 and in bf16 with the packed heads, the
 Segmentor's in f32 and bf16) against the CPU's,
 the batch dump's overlapped loop against its serial order, GT
 generation's splat, median and KITTI aggregate on the GPU against the CPU
-(with TF32 off), and the data-parallel layer at world 1 over NCCL (the
-global-batch BN against F.batch_norm; a DP step through the kernel).
+(with TF32 off), the data-parallel layer at world 1 over NCCL (the
+global-batch BN against F.batch_norm; a DP step through the kernel), and
+row sharding: the kernel's seam sites on extended row shards, and both
+models' spatial eval steps in two ranks on the card over gloo.
 
 They skip on a host without CUDA.  This file imports neither JAX nor the JAX
 package, so it also runs on a GPU host that has no JAX:
@@ -710,3 +712,101 @@ def test_dp_step_at_world_1_runs_the_kernel(nccl_world_1):
         if k != "lr":
             assert torch.isfinite(metrics["dp"][k])
             assert abs(metrics["dp"][k].item() - v.item()) <= 1e-5 + 1e-5 * abs(v.item()), k
+
+
+# --- row (spatial) sharding on the card ----------------------------------------
+
+def _row_shards(t, spatial):
+    """Each row shard (dim 1) of the NHWC ``t`` with one neighbour row on
+    each seam side, and that halo (above, below)."""
+    per = t.shape[1] // spatial
+    return [(t[:, j * per - (j > 0):(j + 1) * per + (j < spatial - 1)].contiguous(),
+             (int(j > 0), int(j < spatial - 1))) for j in range(spatial)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spatial", [2, 3])
+@pytest.mark.parametrize("site", ["up", "reflect", "residual"])
+def test_seam_sites_give_the_unsharded_rows(cuda_device, dtype, spatial, site):
+    """The kernel on row shards extended by their seam rows, those rows'
+    outputs dropped (ops/fused_conv.py's ``halo``; the residual cropped to
+    the skip's extended rows), gives the unsharded kernel's rows; both at
+    the plain version's bars (f32 1e-4, bf16 2e-2 against the f32 plain
+    version of the bf16-rounded inputs)."""
+    g = torch.Generator().manual_seed(40 + spatial)
+    low = torch.randn(2, 8 * spatial, 40, 64, generator=g)
+    skip = torch.randn(2, 16 * spatial, 80, 64, generator=g)
+    w_up = torch.randn(32, 64, 3, 3, generator=g) / 24
+    w = torch.randn(32, 64, 3, 3, generator=g) / 24
+    b = torch.randn(32, generator=g)
+    params = [t.to(cuda_device, dtype) for t in (w_up, w, b)]
+    low, skip = low.to(cuda_device, dtype), skip.to(cuda_device, dtype)
+
+    def run(lo, lo_halo, sk, sk_halo, plain=False):
+        f = fc.fused_conv3x3_plain if plain else fc.fused_conv3x3
+        w_up, w, b = [t.float() for t in params] if plain else params
+        if site == "up":
+            return fc.crop_rows(f(lo, w_up, b, pad_mode="up2_reflect", act="elu"),
+                                2 * lo_halo[0], 2 * lo_halo[1])
+        if site == "reflect":
+            return fc.crop_rows(f(sk, w, b, pad_mode="reflect", act="elu"), *sk_halo)
+        r = fc.crop_rows(f(lo, w_up, pad_mode="up2_reflect", act="none"), *lo_halo)
+        return fc.crop_rows(f(sk, w, b, r.contiguous(), pad_mode="reflect", act="elu"),
+                            *sk_halo)
+
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    with torch.no_grad():
+        before = fc.fused_conv3x3.launches
+        got = torch.cat([run(*lo, *sk) for lo, sk in zip(_row_shards(low, spatial),
+                                                          _row_shards(skip, spatial))], 1)
+        assert fc.fused_conv3x3.launches - before == spatial * (2 if site == "residual" else 1)
+        whole = run(low, (0, 0), skip, (0, 0))
+        ref = run(low.float(), (0, 0), skip.float(), (0, 0), plain=True)
+    torch.cuda.synchronize()
+    assert got.shape == whole.shape == ref.shape
+    torch.testing.assert_close(got, whole, atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol)
+
+
+def test_spatial_eval_on_the_card_matches_one_process(cuda_device, tmp_path):
+    """FootprintNetwork-18's and Segmentor-18's eval steps at 64x96, batch
+    2, in two ranks on the card over gloo, each on its 32 rows: the losses
+    of the one-process eval within 1e-5 + 1e-5|ref|, 10 launches per rank
+    per eval forward, the '1/1' rows within MAE 1e-4."""
+    from footprints_tpu_torch.parallel.dryrun import spawn
+    from footprints_tpu_torch.preprocessing.segmentation import trainer as seg_trainer
+
+    from . import _torch_dp_worker as worker
+
+    g = torch.Generator().manual_seed(33)
+    fp = FootprintNetwork(18, generator=g)
+    seg = Segmentor(18, True, generator=g)
+    torch.save(fp.state_dict(), tmp_path / "fp.pt")
+    torch.save(seg.state_dict(), tmp_path / "seg.pt")
+    rng = np.random.RandomState(33)
+    fp_batch = {"image": rng.rand(2, 64, 96, 3).astype(np.float32),
+                "depth": (rng.rand(2, 64, 96) * 20).astype(np.float32),
+                "ground_depth": (rng.rand(2, 64, 96) * 15).astype(np.float32),
+                **{k: (rng.rand(2, 64, 96) > 0.5).astype(np.float32)
+                   for k in ("visible_ground", "all_ground", "depth_mask",
+                             "moving_object_mask")}}
+    seg_batch = {"image": fp_batch["image"], "ground_mask": fp_batch["all_ground"],
+                 "labelled_pix": fp_batch["depth_mask"]}
+    ranks = spawn(2, worker.spatial_rank, str(tmp_path / "fp.pt"), str(tmp_path / "seg.pt"),
+                  fp_batch, seg_batch, False, None, device="cuda", backend="gloo", spatial=2,
+                  timeout=300)
+    fp, seg = fp.to(cuda_device), seg.to(cuda_device)
+    on_card = {k: torch.from_numpy(v).cuda() for k, v in fp_batch.items()}
+    ref = tstep.build_eval_step(fp, tstep.TrainStepConfig())(on_card)
+    seg_ref = seg_trainer.build_eval_step(seg)({k: torch.from_numpy(v).cuda()
+                                               for k, v in seg_batch.items()})
+    with torch.no_grad():
+        out = fp.eval()(on_card["image"], scales=("1/1",))["1/1"].cpu().numpy()
+    for r in ranks:
+        assert r["footprint"]["f32_launches"] == 10
+        for got, want in ((r["footprint"]["f32"], ref), (r["segmentor"], seg_ref)):
+            assert sorted(got) == sorted(want)
+            for k, v in want.items():
+                assert abs(got[k] - v.item()) <= 1e-5 + 1e-5 * abs(v.item()), k
+    rows = np.concatenate([r["footprint"]["1/1"] for r in ranks], 1)
+    assert float(np.abs(rows - out).mean()) < 1e-4

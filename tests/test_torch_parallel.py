@@ -72,11 +72,6 @@ def test_host_batch_slice_raises_as_jax_does(monkeypatch):
     assert str(got.value) == str(ref.value)
 
 
-def test_spatial_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="spatial sharding is not ported yet"):
-        parallel.make_mesh("cpu", spatial=2)
-
-
 def test_single_process_is_a_world_of_one(monkeypatch):
     for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
         monkeypatch.delenv(var, raising=False)
