@@ -136,7 +136,21 @@ final result line:
               events), peak activation memory a rank, the exchanges' host
               ms in one profiled step, the exchanges per eval step, and
               cuDNN's f32 time of the decoder's 1/4-scale convs at the
-              shard shapes, NCHW against channels_last;
+              shard shapes, NCHW against channels_last.  Then row-sharded
+              training in the same worlds (footprints_tpu_torch/
+              parallel/halo.py's adjoints): one f32 and one bf16 train step
+              (the FootprintNetwork's with the packed heads) of (a), (b)
+              and (c) from the seeded weights, against the same step in one
+              process on the card: f32 losses within 1e-5 + 1e-5|ref|,
+              each gradient leaf before Adam ||d||/||ref|| < 2e-2 (worst
+              printed), BN running stats within 1e-5, the replicas bitwise
+              equal over the ranks after Adam, 10 (5) launches a rank in
+              the forward and none in the backward; bf16 no farther from
+              the one-process f32 step than twice the one-process bf16
+              step, plus 1e-3 at a loss term and 2^-8 at a gradient leaf.
+              Printed, no claim: the f32 train step's ms a rank against
+              one process, the exchanges a step (forward and backward),
+              their host ms in one profiled step, and peak memory a rank;
   8e. export  exports phase main's seeded FootprintNetwork-34 through
               python -m footprints_tpu_torch.export on the card (a saved
               torch.export program with the kernel as the custom op
@@ -3781,7 +3795,7 @@ def phase_dp(fail, run, workdir, host, f32_check):
                 "ending in a synchronise at world 2, both ranks on one card")
     return launches_a + launches_b + launches_cd
 
-# --- phase spatial: row-sharded eval (footprints_tpu_torch/parallel/halo.py) --
+# --- phase spatial: row-sharded eval and training (parallel/halo.py) ----------
 
 # (case, model, global batch, (H, W), row shards): kitti at 2 shards, both
 # models in one world of 2; matterport at 4, whose middle ranks have a seam
@@ -3792,6 +3806,14 @@ SPATIAL_CASES = (("footprint_kitti", "footprint", 4, (HEIGHT, WIDTH), 2),
 SPATIAL_SEED = 30_000
 SPATIAL_TIMED_STEPS = 3
 HALO_SPANS = ("exchange_rows", "gather_rows")
+# every case also trains, in f32 and in bf16 (matterport's middle ranks
+# adjoin at both seams); the exchanges' backward spans beside the forward ones
+SPATIAL_TRAIN_COMPUTE = ("float32", "bfloat16")
+HALO_TRAIN_SPANS = HALO_SPANS + ("exchange_rows.backward", "gather_rows.backward")
+# the bf16 rule's floor at a gradient leaf: each rank's gradient of a bf16
+# parameter copy is rounded to bf16 before the f32 all-reduce, once a rank
+# (tests/test_torch_spatial_train.py:BF16_LEAF_FLOOR)
+BF16_LEAF_FLOOR = 2.0 ** -8
 BF16_HEADS = {"compute_dtype": "bfloat16", "s2d_head": True, "p4_head": True}
 
 
@@ -3928,11 +3950,93 @@ def spatial_cudnn_probe():
     return out
 
 
+def spatial_train_step(model, compute, mesh, device):
+    """spatial_net's seeded model in train mode, its optimizer and its train
+    step on `mesh` (None: one process) with the forward in `compute`; the
+    FootprintNetwork's bf16 step with the packed heads, as its trainer's
+    default."""
+    g = torch.Generator().manual_seed(SEED)
+    if model == "footprint":
+        net = FootprintNetwork(34, device=device, generator=g)
+        heads = compute == "bfloat16"
+        config = TrainStepConfig(compute_dtype=compute, s2d_head=heads, p4_head=heads)
+    else:
+        net = Segmentor(34, True, device=device, generator=g)
+        config = TrainStepConfig()
+    if mesh is not None:
+        sync_batch_norm(net, mesh)
+    optimizer = make_optimizer(net, config)
+    if model == "footprint":
+        return net, optimizer, build_train_step(net, optimizer, config, mesh)
+    return net, optimizer, seg_trainer.build_train_step(
+        net, optimizer, lambda s: 1e-4, SEG_DTYPES[compute], mesh)
+
+
+def spatial_train_result(net, optimizer, step, batch, device, mesh=None):
+    """One train step: its losses (the ranks' mean), the gradients before
+    Adam and the BN running stats (f32; rank 0's, averaged, on a mesh), the
+    replica digests after Adam (every rank's), the kernel's launches in the
+    forward (read by a hook at the net's output) and in the rest of the
+    step, and the exchanges made by the forward and the loss and by their
+    backward."""
+    counters = (lambda: (fused_conv3x3.launches, fused_conv3x3.bf16_launches,
+                         exchange_rows.calls, exchange_rows.backward_calls))
+    start, at_output = counters(), []
+    hook = net.register_forward_hook(lambda *args: at_output.append(counters()))
+    metrics = step(0, batch)
+    torch.cuda.synchronize(device)
+    hook.remove()
+    end, mid = counters(), at_output[0]
+    counts = {"launches_forward": mid[0] - start[0], "launches_backward": end[0] - mid[0],
+              "bf16_launches": end[1] - start[1], "exchanges_forward": end[2] - start[2],
+              "exchanges_backward": end[3] - start[3]}
+    if mesh is None:
+        return {"losses": {k: float(v) for k, v in metrics.items() if k != "lr"},
+                "grads": {n: p.grad.detach().float().cpu().numpy()
+                          for n, p in net.named_parameters() if p.grad is not None},
+                "stats": {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()
+                          if "running" in k}, **counts}
+    return {**dp_summary(mesh, net, optimizer, metrics, None), **counts}
+
+
+def spatial_train_times(step, batch, device):
+    """The train step's ms (one step, CUDA events; it follows the check
+    step, which met cuDNN's first calls), its peak allocated memory above
+    the allocation before it (weights, Adam's state, the batch), and one
+    profiled step's host time in the exchanges, forward and backward
+    (dp_profiled over HALO_TRAIN_SPANS)."""
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ms = time_ms(lambda: step(1, batch), iters=1, warmup=0)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    prof = dp_profiled(lambda: step(2, batch), device, HALO_TRAIN_SPANS)
+    return {"ms": ms, "peak_gib": peak / 2 ** 30,
+            "halo_host_ms": prof["all_reduce_span_ms"],
+            "halo_host_ms_union": prof["all_reduce_spans_ms_union"],
+            "halo_host_net_of_sync_ms": prof["all_reduce_net_of_sync_ms"],
+            "profiled_wall_ms": prof["profiled_wall_ms"], "busy_ms_union": prof["busy_ms_union"]}
+
+
+def spatial_train(model, batch, device, mesh=None):
+    """The f32 and bf16 train steps of `model` from the seeded weights on
+    `batch` (this rank's shard on a mesh), and the f32 step's times."""
+    out = {}
+    for compute in SPATIAL_TRAIN_COMPUTE:
+        net, optimizer, step = spatial_train_step(model, compute, mesh, device)
+        out[compute] = spatial_train_result(net, optimizer, step, batch, device, mesh)
+        if compute == "float32":
+            out["times"] = spatial_train_times(step, batch, device)
+        del net, optimizer, step
+    return out
+
+
 def spatial_rank(mesh, cases):
     """Each case on this rank's shard of its batch: every eval step (its
     losses, the kernel's launches in it, the exchanges, and the kernel's
     calls against the plain version), the rows of the f32 '1/1' map, and the
-    f32 step's times.  Ranks are spawned processes that import this file."""
+    f32 step's times; then the train steps (spatial_train).  Ranks are
+    spawned processes that import this file."""
     out = {}
     for case, model, host in cases:
         net = spatial_net(model, mesh.device)
@@ -3953,8 +4057,9 @@ def spatial_rank(mesh, cases):
         got["forward_launches"] = fused_conv3x3.launches - before
         got["times"] = spatial_times(spatial_eval_steps(model, net, mesh)["f32"], local,
                                      mesh.device)
-        out[case] = got
         del net
+        got["train"] = spatial_train(model, local, mesh.device, mesh)
+        out[case] = got
     return out
 
 
@@ -3966,7 +4071,77 @@ def spatial_single(model, host):
     out = {name: {k: float(v) for k, v in step(batch).items()} for name, step in steps.items()}
     out["1/1"] = spatial_forward(model, net, batch["image"], None)
     out["times"] = spatial_times(steps["f32"], batch, torch.device("cuda"))
+    del net, steps
+    out["train"] = spatial_train(model, batch, torch.device("cuda"))
     return out
+
+
+def spatial_train_checks(fail, case, model, n, hw, got, ref, spatial, smi):
+    """phase_spatial's checks of the row-sharded train steps (`got`: the
+    ranks' spatial_train, `ref`: the one-process one); emits the
+    spatial_train and spatial_train_times lines and returns the kernel's
+    launches in the check steps."""
+    per_forward = LAUNCHES_PER_FORWARD if model == "footprint" else SEG_LAUNCHES_PER_FORWARD
+    f32, single = got[0]["float32"], ref["float32"]
+    grads = {k: torch.from_numpy(v) for k, v in f32["grads"].items()}
+    single_grads = {k: torch.from_numpy(v) for k, v in single["grads"].items()}
+    loss_err = max(abs(f32["losses"][k] - v) for k, v in single["losses"].items())
+    fail.check(sorted(f32["losses"]) == sorted(single["losses"]) and all(
+        abs(f32["losses"][k] - v) <= 1e-5 + 1e-5 * abs(v) for k, v in single["losses"].items()),
+        f"spatial train {case}: f32 losses {loss_err} from the single process")
+    leaf, worst = worst_grad_leaf(grads, single_grads)
+    fail.check(grads.keys() == single_grads.keys() and worst < 2e-2,
+               f"spatial train {case}: gradient leaf {leaf} {worst} from the single process")
+    bn_err = max(float(np.abs(f32["stats"][k] - v).max()) for k, v in single["stats"].items())
+    fail.check(bn_err <= 1e-5, f"spatial train {case}: BN running stats {bn_err} off")
+    checks = {"losses_max_abs_err": loss_err, "worst_grad_leaf": [leaf, worst],
+              "bn_stats_max_abs_err": bn_err}
+    launches = 0
+    for compute in SPATIAL_TRAIN_COMPUTE:
+        ranks = [g[compute] for g in got]
+        digests = {d for r in ranks for d in r["digests"]}
+        fail.check(len(digests) == 1, f"spatial train {case} {compute}: replicas differ")
+        counts = [[r["launches_forward"], r["launches_backward"], r["bf16_launches"]]
+                  for r in ranks]
+        bf16 = per_forward if compute == "bfloat16" else 0
+        fail.check(counts == [[per_forward, 0, bf16]] * spatial,
+                   f"spatial train {case} {compute}: launches (forward, backward, bf16) "
+                   f"a rank {counts}")
+        launches += sum(c[0] + c[1] for c in counts)
+        checks[compute] = {"launches_forward_backward_bf16_per_rank": counts,
+                           "exchanges_forward_backward_per_rank": [
+                               [r["exchanges_forward"], r["exchanges_backward"]]
+                               for r in ranks]}
+    bf16, single_bf16 = got[0]["bfloat16"], ref["bfloat16"]
+    gaps = {k: (abs(bf16["losses"][k] - v), abs(single_bf16["losses"][k] - v))
+            for k, v in single["losses"].items()}
+    fail.check(all(own <= 2 * one + 1e-3 for own, one in gaps.values()),
+               f"spatial train {case}: bf16 loss gaps to the f32 step {gaps}")
+    own = {k: torch.from_numpy(v) for k, v in bf16["grads"].items()}
+    one = {k: torch.from_numpy(v) for k, v in single_bf16["grads"].items()}
+    whole = (whole_rel(own, single_grads), whole_rel(one, single_grads))
+    leaves = {k: (worst_grad_leaf({k: own[k]}, {k: v})[1],
+                  worst_grad_leaf({k: one[k]}, {k: v})[1]) for k, v in single_grads.items()}
+    bad = {k: g for k, g in leaves.items() if g[0] > 2 * g[1] + BF16_LEAF_FLOOR}
+    fail.check(whole[0] <= 2 * whole[1] and not bad,
+               f"spatial train {case}: bf16 gradient gaps to the f32 step, whole {whole}, "
+               f"leaves over the rule {bad}")
+    checks["bf16_gaps_to_f32"] = {
+        "worst_loss": max(g[0] for g in gaps.values()),
+        "single_worst_loss": max(g[1] for g in gaps.values()),
+        "whole_gradient": whole[0], "single_whole_gradient": whole[1],
+        "worst_leaf": max(leaves.items(), key=lambda kv: kv[1][0])}
+    emit("spatial_train", case=case, model=f"{model}-34", batch=n, shape=list(hw),
+         spatial=spatial, world=spatial, reference="the same step in one process on the card",
+         loss_bar="1e-5 + 1e-5|ref|", grad_bar=2e-2, bn_bar=1e-5,
+         bf16_rule="<= 2 x the one-process bf16 step's gap + 1e-3 (loss), + 2^-8 (leaf); "
+                   "whole gradient <= 2 x", **checks)
+    emit("spatial_train_times", case=case, card=smi, batch=n, shape=list(hw), spatial=spatial,
+         single_process=ref["times"], ranks=[g["times"] for g in got],
+         method="f32 train step, one step after the check step (CUDA events); peak "
+                "allocated above the allocation before the step; the exchanges' host "
+                "spans, forward and backward, from one profiled step", claim=None)
+    return launches
 
 
 def phase_spatial(fail, smi):
@@ -3978,7 +4153,8 @@ def phase_spatial(fail, smi):
     (packed heads) no farther from the f32 eval than twice the single
     process's bf16 eval + 1e-3; then times, memory and the exchanges
     (no claim), beside cuDNN's times at the shard shapes of the decoder's
-    1/4-scale convs (spatial_cudnn_probe).  Returns (the kernel's launches
+    1/4-scale convs (spatial_cudnn_probe); then each case's train steps
+    (spatial_train_checks).  Returns (the kernel's launches
     on the paths driven here, the worst f32 seam-site error)."""
     emit("spatial_cudnn_probe", card=smi, convs=spatial_cudnn_probe(),
          method="F.conv2d f32, TF32 off, mean of 5 after 1 (CUDA events); peak allocated "
@@ -4050,6 +4226,9 @@ def phase_spatial(fail, smi):
                  method="f32 eval step, mean of 3 after 1 (CUDA events); peak allocated "
                         "above the allocation before the step; the exchanges' host spans "
                         "from one profiled step", claim=None)
+            launches += spatial_train_checks(fail, case, model, n, hw,
+                                             [g["train"] for g in got], ref["train"],
+                                             spatial, smi)
     return launches, worst
 
 

@@ -99,6 +99,13 @@ class _AllReduceSum(torch.autograd.Function):
         return grad, None
 
 
+def all_reduce_sum(t, group):
+    """The sum of ``t`` over the ranks of ``group``, on every rank; its
+    adjoint sums the ranks' cotangents (each rank's result feeds its own
+    loss, and every rank's input feeds every result)."""
+    return _AllReduceSum.apply(t, group)
+
+
 def _global_batch_norm(x, weight, bias, running_mean, running_var, eps, momentum,
                        group):
     """Train-mode BN over the batch of every rank of ``group`` (equal
@@ -111,9 +118,9 @@ def _global_batch_norm(x, weight, bias, running_mean, running_var, eps, momentum
     xf = x.float() if x.dtype == torch.bfloat16 else x
     dims = (0, 2, 3)
     n = x.numel() // x.shape[1] * dist.get_world_size(group)
-    mean = _AllReduceSum.apply(xf.sum(dims), group) / n
+    mean = all_reduce_sum(xf.sum(dims), group) / n
     centred = xf - mean.view(1, -1, 1, 1)
-    var = _AllReduceSum.apply(centred.square().sum(dims), group) / n
+    var = all_reduce_sum(centred.square().sum(dims), group) / n
     inv = torch.rsqrt(var + eps) * weight.to(xf.dtype)
     y = centred * inv.view(1, -1, 1, 1) + bias.to(xf.dtype).view(1, -1, 1, 1)
     with torch.no_grad():
@@ -130,7 +137,7 @@ def reflect_pad(x, pad=1, mesh=None, memory_format=torch.contiguous_format):
     copy between them)."""
     if mesh is None:
         return F.pad(x, (pad, pad, pad, pad), mode="reflect")
-    top, bottom = halo_rows(x, pad, pad, mesh)
+    top, bottom, x = halo_rows(x, pad, pad, mesh)
     n, c, h, w = x.shape
     out = torch.empty((n, c, h + 2 * pad, w + 2 * pad), dtype=x.dtype, device=x.device,
                       memory_format=memory_format)

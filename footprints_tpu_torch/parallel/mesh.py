@@ -22,9 +22,12 @@ a gloo side group, so it syncs no device.
 The ``spatial`` axis (``make_mesh(spatial=k)``) lays the ranks out as the
 JAX mesh's ``(data, spatial)`` device array, ``reshape(world // k, k)``:
 rank ``r`` holds the images of data index ``r // k`` and the rows of row
-index ``r % k``, evaluated with a halo exchange at every op that reads
-across rows (parallel/halo.py).  Only the eval step runs row-sharded; a
-train step refuses a spatial mesh.
+index ``r % k``, computed with a halo exchange at every op that reads
+across rows (parallel/halo.py), in the eval and the train steps.  Train-mode
+BN's statistics are then the global batch's as well (every rank holds
+distinct, equal-sized pixels of it), and the exchanges' adjoints make the
+world mean of ``all_reduce_gradients`` the global loss's gradient, so after
+Adam every rank of the data x spatial world holds the same replica.
 
 JAX's ``replicated`` and ``batch_sharded`` name ``NamedSharding``s; here a
 tensor is a rank's full replica (params, BN state, the eval step's losses)

@@ -10,13 +10,17 @@ the 4 scales.
 Row-sharded (a spatial ``mesh``: the maps and targets are this rank's rows
 of each image), the resize exchanges one halo row per seam, and each
 image's masked sum and labelled count are summed over the spatial group
-before the division: the per-image normalisation of the whole image.
+before the division: the per-image normalisation of the whole image.  That
+sum is differentiable, and its adjoint sums the cotangents of the k
+spatial ranks, each of which holds the whole per-image loss: so the ranks'
+gradients sum to k times the data group's, and the world mean of
+``all_reduce_gradients`` is the global loss's gradient (train/step.py).
 """
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
+from ...nn.layers import all_reduce_sum
 from ...parallel.halo import exchange_rows, seam_rows
 from ...train.losses import bce_with_logits
 
@@ -52,9 +56,7 @@ def compute_seg_losses(outputs, ground_mask, labelled_pix, mesh=None):
     sums = [(bce_with_logits(upsample_to(out.float(), height, width, mesh)[..., 0],
                              ground_mask) * labelled_pix).sum((1, 2)) for out in outputs]
     if mesh is not None:
-        whole = torch.stack([valid, *sums])
-        dist.all_reduce(whole, group=mesh.spatial_group)
-        valid, *sums = whole.unbind()
+        valid, *sums = all_reduce_sum(torch.stack([valid, *sums]), mesh.spatial_group).unbind()
     for scale, masked in enumerate(sums):
         per_image = masked / (valid + 1e-7)
         losses[f"ground_loss_{scale}"] = per_image.mean()

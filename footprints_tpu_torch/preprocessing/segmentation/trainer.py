@@ -41,7 +41,7 @@ from ...parallel import (all_reduce_gradients, any_rank, barrier, initialize, ma
 from ...parallel.halo import shard_rows, spatial_mesh
 from ...train.evaluator import Evaluator
 from ...train.step import (TrainStepConfig, forward_in, make_lr_schedule,
-                           make_optimizer, refuse_spatial, resolve_compute_dtype)
+                           make_optimizer, resolve_compute_dtype)
 from .datasets import ConcatDataset, get_dataset_class
 from .inference import load_segmentor_weights
 from .losses import compute_seg_losses
@@ -59,17 +59,20 @@ def build_train_step(net, optimizer, schedule, dtype=torch.float32, mesh=None):
     (``forward_in``).  ``metrics`` holds the detached device loss scalars
     and 'lr' (a float).  With a distributed ``mesh`` the batch is this
     rank's shard and the gradients are averaged over the ranks
-    (train/step.py:build_train_step); a spatial mesh raises."""
-    refuse_spatial(mesh)
+    (train/step.py:build_train_step); on a spatial mesh the forward and the
+    loss run row-sharded, as in ``build_eval_step``."""
     params = [p for p in net.parameters() if p.requires_grad]
+    rows = spatial_mesh(mesh)
 
     def step_fn(step, batch):
         lr = schedule(step)
         for group in optimizer.param_groups:
             group["lr"] = lr
         net.train()
-        outputs = forward_in(net, batch["image"], dtype)
-        losses = compute_seg_losses(outputs, batch["ground_mask"], batch["labelled_pix"])
+        with shard_rows(net, mesh):
+            outputs = forward_in(net, batch["image"], dtype)
+            losses = compute_seg_losses(outputs, batch["ground_mask"], batch["labelled_pix"],
+                                        rows)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
         if mesh is not None:

@@ -4,9 +4,12 @@ One train step is forward (train-mode BN), the 4-scale loss, backward and
 the optimizer update, on one device; with a data-parallel mesh
 (parallel/mesh.py) each rank runs it on its shard, BN over the global
 batch, and the gradients are averaged over the ranks before the update.
-The eval step also takes a spatial mesh (``make_mesh(spatial=k)``): each
-rank then computes its rows of every activation (parallel/halo.py); the
-train step refuses one (row-sharded training is not ported yet).
+On a spatial mesh (``make_mesh(spatial=k)``) each rank computes its rows of
+every activation (parallel/halo.py), in the train step as in the eval step:
+the backward runs the halo exchanges' adjoints, which add each halo row's
+gradient to the rank that owns the row, so the ranks' gradients sum to the
+gradient of the sum of their losses, and their mean is the global loss's
+(every rank's loss is a mean over an equal shard).
 Loss scalars stay on the device; the trainer fetches them at its log
 cadence.  With ``compute_dtype`` bfloat16 the forward runs on bf16 compute
 copies of the f32 masters (``forward_in``); the loss, the gradients of the masters and Adam's state
@@ -24,7 +27,7 @@ import dataclasses
 
 import torch
 
-from ..parallel.halo import shard_rows, spatial_mesh
+from ..parallel.halo import shard_rows
 from ..parallel.mesh import all_reduce_gradients, mean_over_ranks
 from .losses import LossConfig, compute_losses
 
@@ -117,11 +120,12 @@ def build_train_step(net, optimizer, config: TrainStepConfig, mesh=None):
     packed heads optionally their '@s2d'/'@s2d2' packs.  ``metrics`` holds
     the detached device loss scalars and 'lr' (a float).
 
-    With a distributed ``mesh`` the batch is this rank's shard, and the
-    gradients are averaged over the ranks after backward (the metrics stay
-    this rank's: the trainer averages them at its log cadence).
+    With a distributed ``mesh`` the batch is this rank's shard, on a
+    spatial mesh its rows of every image, on which the forward runs
+    row-sharded; the gradients are averaged over the ranks after backward
+    (the metrics stay this rank's: the trainer averages them at its log
+    cadence).
     """
-    refuse_spatial(mesh)
     schedule = make_lr_schedule(config)
     dtype, heads = config.dtype, config.heads
     params = [p for p in net.parameters() if p.requires_grad]
@@ -131,8 +135,9 @@ def build_train_step(net, optimizer, config: TrainStepConfig, mesh=None):
         for group in optimizer.param_groups:
             group["lr"] = lr
         net.train()
-        outputs = forward_in(net, batch["image"], dtype, heads)
-        losses = compute_losses(outputs, batch, config.loss)
+        with shard_rows(net, mesh):
+            outputs = forward_in(net, batch["image"], dtype, heads)
+            losses = compute_losses(outputs, batch, config.loss)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
         if mesh is not None:
@@ -143,13 +148,6 @@ def build_train_step(net, optimizer, config: TrainStepConfig, mesh=None):
         return metrics
 
     return step_fn
-
-
-def refuse_spatial(mesh):
-    """Raise for a spatial mesh: a train step needs the halo exchange's
-    adjoint and BN statistics over the row shards, not ported yet."""
-    if spatial_mesh(mesh) is not None:
-        raise NotImplementedError("spatial training is not ported yet")
 
 
 def build_eval_step(net, config: TrainStepConfig, mesh=None):

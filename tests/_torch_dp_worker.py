@@ -1,8 +1,11 @@
 """Rank functions for the data-parallel and row-sharding tests
-(tests/test_torch_parallel.py, tests/test_torch_spatial.py), run by
+(tests/test_torch_parallel.py, tests/test_torch_spatial.py,
+tests/test_torch_spatial_train.py), run by
 footprints_tpu_torch.parallel.dryrun.spawn in processes joined over gloo.
 Imports no JAX: each returns numpy arrays and floats, which the test holds
 against the JAX package in its own process."""
+
+import contextlib
 
 import numpy as np
 import torch
@@ -15,7 +18,9 @@ from footprints_tpu_torch.nn import blocks, layers
 from footprints_tpu_torch.ops import fused_conv as fc
 from footprints_tpu_torch.parallel import (all_reduce_mean, replica_digest, replicate_tree,
                                            shard_batch, sync_batch_norm)
+from footprints_tpu_torch.parallel import halo
 from footprints_tpu_torch.parallel.halo import exchange_rows, shard_rows
+from footprints_tpu_torch.preprocessing.segmentation import losses as seg_losses
 from footprints_tpu_torch.preprocessing.segmentation import trainer as seg_trainer
 from footprints_tpu_torch.preprocessing.segmentation.losses import upsample_to
 from footprints_tpu_torch.train import step as tstep
@@ -32,16 +37,23 @@ def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2)
 
 
-def bn_rank(mesh, x, scale, bias, mean, var, cotangent):
-    """Global-batch train-mode BN of this rank's rows of the NHWC ``x``,
-    then backward of sum(y * cotangent): this rank's y and x gradient, the
-    weight and bias gradients summed over the ranks, the running stats."""
-    xr = _nchw(_rows(mesh, x)).requires_grad_()
+def _image_rows(mesh, a):
+    """This rank's image rows (dim 1) of the NHWC ``a`` on a spatial mesh."""
+    per = a.shape[1] // mesh.spatial
+    return a[:, mesh.row_rank * per:(mesh.row_rank + 1) * per]
+
+
+def bn_rank(mesh, x, scale, bias, mean, var, cotangent, split=_rows):
+    """Global-batch train-mode BN of this rank's shard (``split``: its
+    images, or ``_image_rows``) of the NHWC ``x``, then backward of sum(y *
+    cotangent): this rank's y and x gradient, the weight and bias gradients
+    summed over the ranks, the running stats."""
+    xr = _nchw(split(mesh, x)).requires_grad_()
     w = torch.from_numpy(scale).requires_grad_()
     b = torch.from_numpy(bias).requires_grad_()
     rm, rv = torch.from_numpy(mean.copy()), torch.from_numpy(var.copy())
     y = layers.batch_norm(xr, w, b, rm, rv, training=True, group=mesh.group)
-    (y * _nchw(_rows(mesh, cotangent))).sum().backward()
+    (y * _nchw(split(mesh, cotangent))).sum().backward()
     wb = torch.cat([w.grad, b.grad])
     dist.all_reduce(wb, group=mesh.group)
     return {"y": y.detach().permute(0, 2, 3, 1).numpy(),
@@ -58,9 +70,9 @@ def _step_result(mesh, net, optimizer, metrics):
     out = {"losses": dict(zip(names, losses.tolist())), "lr": metrics["lr"],
            "digest": replica_digest(net, optimizer)}
     if mesh.rank == 0:
-        out["grads"] = {n: p.grad.numpy().copy() for n, p in net.named_parameters()
+        out["grads"] = {n: p.grad.cpu().numpy().copy() for n, p in net.named_parameters()
                         if p.grad is not None}
-        out["state_dict"] = {k: v.numpy().copy() for k, v in net.state_dict().items()}
+        out["state_dict"] = {k: v.cpu().numpy().copy() for k, v in net.state_dict().items()}
     return out
 
 
@@ -145,11 +157,21 @@ def _seeded(module, rng):
     return module
 
 
+# the op cases' inputs whose rows each rank holds a shard of
+ROW_LEAVES = ("image", "x", "low", "skip", "psp_in")
+
+
 def op_cases(spatial):
     """{name: fn(mesh) -> this rank's rows of the op's NCHW output} for each
     op that reads across rows, on seeded inputs whose rows split into
     ``spatial`` shards; ``fn(None)`` is the unsharded op on the whole input.
     Every rank runs the cases in this order (each is a collective)."""
+    return op_setup(spatial)[0]
+
+
+def op_setup(spatial):
+    """``op_cases`` and the leaves they read, {name: tensor}: the inputs
+    (ROW_LEAVES, whole) and the weights, every one requiring a gradient."""
     rng = np.random.RandomState(60 + spatial)
     cl = torch.channels_last
     image = _randn(rng, 2, 3, 4 * spatial, 12).contiguous(memory_format=cl)
@@ -164,6 +186,13 @@ def op_cases(spatial):
     tail = (_seeded(blocks.ConvBlock(6, 4), rng), _seeded(blocks.OutConvBlock(4, 2), rng))
     heads = {s: _seeded(blocks.OutConvBlock(6, 2, s, True), rng) for s in (2, 4, 8)}
     psp = _seeded(PSP(8), rng)
+    leaves = {"image": image, "x": x, "low": low, "skip": skip, "psp_in": psp_in, "w7": w7,
+              "w3": w3, "w1": w1, "w_up": w_up, "w_skip": w_skip, "w2": w2, "b": b}
+    for t in leaves.values():
+        t.requires_grad_()
+    for prefix, m in (("up_block", up_block), ("tail0", tail[0]), ("tail1", tail[1]),
+                      ("psp", psp), *((f"head{s}", h) for s, h in heads.items())):
+        leaves.update({f"{prefix}.{n}": p for n, p in m.named_parameters() if p.requires_grad})
 
     def nchw(y):
         return y.permute(0, 3, 1, 2)
@@ -212,7 +241,28 @@ def op_cases(spatial):
     }
     for s, head in heads.items():
         cases[f"bilinear_head_x{s}"] = lambda m, head=head: module(m, head, low)
-    return cases
+    return cases, leaves
+
+
+def op_gradients(mesh, spatial):
+    """{case: {leaf: gradient}} of sum(output * cotangent) for every op
+    case, the cotangent seeded per case over the whole output: on a mesh,
+    this rank's rows of each ROW_LEAVES gradient and its whole weight
+    gradients (the unsharded op's are their concatenation over the ranks
+    and their sum); with ``mesh=None``, the unsharded op's."""
+    cases, leaves = op_setup(spatial)
+    out = {}
+    for i, (name, fn) in enumerate(cases.items()):
+        for t in leaves.values():
+            t.grad = None
+        y = fn(mesh)
+        rows = y.shape[2] * (1 if mesh is None else spatial)
+        cotangent = _randn(np.random.RandomState(90 + i), y.shape[0], y.shape[1], rows,
+                           y.shape[3])
+        (y * own_rows(mesh, cotangent)).sum().backward()
+        out[name] = {k: (own_rows(mesh, t.grad) if k in ROW_LEAVES else t.grad).numpy().copy()
+                     for k, t in leaves.items() if t.grad is not None}
+    return out
 
 
 def ops_rank(mesh):
@@ -309,3 +359,121 @@ def spatial_rank(mesh, footprint_path, segmentor_path, fp_batch=None, seg_batch=
     if shapes_batch is not None:
         out["shapes"] = op_shapes_rank(mesh, footprint_path, segmentor_path, shapes_batch)
     return out
+
+
+# --- row-sharded train steps: tests/test_torch_spatial_train.py ---------------
+
+@contextlib.contextmanager
+def detached_halos():
+    """The halo exchange as it was forward only: its backward passes the
+    rank's own rows' gradient through and drops the halo rows'."""
+    backward = halo._HaloRows.backward
+    halo._HaloRows.backward = staticmethod(lambda ctx, g_top, g_bottom, g_x:
+                                           (g_x, None, None, None))
+    try:
+        yield
+    finally:
+        halo._HaloRows.backward = backward
+
+
+class _ForwardOnlySum(torch.autograd.Function):
+    """An all-reduce whose backward is the identity (the wrong adjoint)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+@contextlib.contextmanager
+def identity_backward_loss_sum():
+    """The seg loss's spatial all-reduce with an identity backward."""
+    fn = seg_losses.all_reduce_sum
+    seg_losses.all_reduce_sum = _ForwardOnlySum.apply
+    try:
+        yield
+    finally:
+        seg_losses.all_reduce_sum = fn
+
+
+def spatial_step_rank(mesh, model, state_dict_path, batch, config=None):
+    """One train step of FootprintNetwork-18 (``config``: a TrainStepConfig's
+    keywords) or Segmentor-18 (PSP; ``config``: {'compute_dtype': ...}) from
+    the weights in ``state_dict_path``, on this rank's shard of ``batch`` on
+    its device: ``_step_result``, this rank's forward and backward
+    exchanges and the kernel's launches (0 on the CPU)."""
+    config = config or {}
+    if model == "footprint":
+        net = _footprint_net(state_dict_path, mesh.device)
+        train_config = tstep.TrainStepConfig(steps_per_epoch=5, **config)
+        optimizer = tstep.make_optimizer(net, train_config)
+        step_fn = tstep.build_train_step(net, optimizer, train_config, mesh)
+    else:
+        net = Segmentor(18, True)
+        net.load_state_dict(torch.load(state_dict_path), strict=True)
+        net.to(mesh.device)
+        optimizer = tstep.make_optimizer(net, tstep.TrainStepConfig())
+        step_fn = seg_trainer.build_train_step(
+            net, optimizer, lambda s: 1e-4,
+            tstep.resolve_compute_dtype(config.get("compute_dtype")), mesh)
+    sync_batch_norm(net, mesh)
+    replicate_tree(mesh, net)
+    before = exchange_rows.calls, exchange_rows.backward_calls, fc.fused_conv3x3.launches
+    metrics = step_fn(0, shard_batch(mesh, batch))
+    return {**_step_result(mesh, net, optimizer, metrics),
+            "exchanges": [exchange_rows.calls - before[0],
+                          exchange_rows.backward_calls - before[1]],
+            "launches": fc.fused_conv3x3.launches - before[2]}
+
+
+def mismatched_backward_rank(mesh):
+    """Two exchanges of equal shapes whose backwards the ranks run in
+    opposite orders: the error each rank raises, or None."""
+    a, b = (torch.randn(1, 2, 4, 3, requires_grad=True) for _ in range(2))
+    ya, yb = exchange_rows(a, 1, 1, mesh), exchange_rows(b, 1, 1, mesh)
+    first, second = (ya, yb) if mesh.rank == 0 else (yb, ya)
+    try:
+        first.sum().backward()
+        second.sum().backward()
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def spatial_train_rank(mesh, footprint_path, segmentor_path, fp_batch, seg_batch,
+                       spatial_ops=None, bn_args=None, extra=False):
+    """What test_torch_spatial_train.py reads from one spatial world: the
+    f32 train steps of both models; the op cases' gradients at
+    ``spatial_ops`` row shards; the row-sharded BN; and with ``extra`` the
+    bf16 steps, the negative controls and the mismatched backward."""
+    out = {"footprint": spatial_step_rank(mesh, "footprint", footprint_path, fp_batch),
+           "segmentor": spatial_step_rank(mesh, "segmentor", segmentor_path, seg_batch)}
+    if spatial_ops is not None:
+        out["ops"] = op_gradients(mesh, spatial_ops)
+    if bn_args is not None:
+        out["bn"] = bn_rank(mesh, *bn_args, split=_image_rows)
+    if extra:
+        out["footprint_bf16"] = spatial_step_rank(mesh, "footprint", footprint_path, fp_batch,
+                                                  BF16_HEADS)
+        out["segmentor_bf16"] = spatial_step_rank(mesh, "segmentor", segmentor_path, seg_batch,
+                                                  {"compute_dtype": "bfloat16"})
+        with detached_halos():
+            out["footprint_detached"] = spatial_step_rank(mesh, "footprint", footprint_path,
+                                                          fp_batch)
+        with identity_backward_loss_sum():
+            out["segmentor_identity"] = spatial_step_rank(mesh, "segmentor", segmentor_path,
+                                                          seg_batch)
+        out["mismatch"] = mismatched_backward_rank(mesh)
+    return out
+
+
+def ops_grad_rank(mesh, footprint_path, fp_batch):
+    """The op cases' gradients on this rank's rows, and the
+    FootprintNetwork-18's f32 train step."""
+    return {"ops": op_gradients(mesh, mesh.spatial),
+            "footprint": spatial_step_rank(mesh, "footprint", footprint_path, fp_batch)}

@@ -9,8 +9,9 @@ the batch dump's overlapped loop against its serial order, GT
 generation's splat, median and KITTI aggregate on the GPU against the CPU
 (with TF32 off), the data-parallel layer at world 1 over NCCL (the
 global-batch BN against F.batch_norm; a DP step through the kernel), and
-row sharding: the kernel's seam sites on extended row shards, and both
-models' spatial eval steps in two ranks on the card over gloo.
+row sharding: the kernel's seam sites on extended row shards, forward
+and backward, and both models' spatial eval and train steps in two ranks
+on the card over gloo.
 
 They skip on a host without CUDA.  This file imports neither JAX nor the JAX
 package, so it also runs on a GPU host that has no JAX:
@@ -766,6 +767,112 @@ def test_seam_sites_give_the_unsharded_rows(cuda_device, dtype, spatial, site):
     assert got.shape == whole.shape == ref.shape
     torch.testing.assert_close(got, whole, atol=tol, rtol=tol)
     torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol)
+
+
+def _grad_close(got, ref, leaf, dtype):
+    """The fused wrappers' gradient bars in f32: a weight or bias gradient
+    (a sum of some 10^4 products, which cuDNN adds in other orders on the
+    two tensor sizes) within 1e-3 max|ref| + 1e-3|ref|, an input or
+    residual gradient within 1e-4 + 1e-4|ref|; bf16 2e-2 in place of
+    both."""
+    tol = (1e-3 if leaf in ("w", "b") else 1e-4) if dtype == torch.float32 else 2e-2
+    atol = tol * ref.abs().max().item() if leaf in ("w", "b") else tol
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=tol, msg=leaf)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spatial", [2, 3])
+@pytest.mark.parametrize("site", ["up", "reflect", "residual"])
+def test_seam_site_gradients_give_the_unsharded_gradients(cuda_device, dtype, spatial, site):
+    """The fused wrappers' gradients through the kernel on row shards
+    extended by their seam rows, the seam rows' outputs dropped: the x, w,
+    b and residual gradients, the shards' halo rows' gradients added back
+    to the rows they were copied from (here by autograd through the slices
+    that made the shards) and w's and b's summed, are the unsharded
+    kernel's; the backward launches no kernel."""
+    g = torch.Generator().manual_seed(50 + spatial)
+    low = torch.randn(2, 8 * spatial, 40, 64, generator=g)
+    skip = torch.randn(2, 16 * spatial, 80, 64, generator=g)
+    res = torch.randn(2, 16 * spatial, 80, 32, generator=g)
+    w = torch.randn(32, 64, 3, 3, generator=g) / 24
+    b = torch.randn(32, generator=g)
+    cot = torch.randn(2, 16 * spatial, 80, 32, generator=g)
+    leaves = {"x": low if site == "up" else skip, "w": w, "b": b}
+    if site == "residual":
+        leaves["residual"] = res
+    leaves = {k: v.to(cuda_device, dtype).requires_grad_() for k, v in leaves.items()}
+    cot = cot.to(cuda_device, dtype)
+
+    def run(x, r, halo):
+        if site == "up":
+            return fc.up_conv_fused(x, leaves["w"], leaves["b"], halo=halo)
+        if site == "reflect":
+            return fc.conv_reflect_fused(x, leaves["w"], leaves["b"], halo=halo)
+        return fc.conv_reflect_res_fused(x, leaves["w"], leaves["b"], r, halo=halo)
+
+    def grads(y):
+        for t in leaves.values():
+            t.grad = None
+        before = fc.fused_conv3x3.launches
+        (y.float() * cot.float()).sum().backward()
+        assert fc.fused_conv3x3.launches == before
+        return {k: t.grad.clone() for k, t in leaves.items()}
+
+    before = fc.fused_conv3x3.launches
+    shards = _row_shards(leaves["x"], spatial)
+    rs = (_row_shards(leaves["residual"], spatial) if site == "residual"
+          else [(None, None)] * spatial)
+    got = grads(torch.cat([run(x, r, halo) for (x, halo), (r, _) in zip(shards, rs)], 1))
+    assert fc.fused_conv3x3.launches - before == spatial
+    ref = grads(run(leaves["x"], leaves.get("residual"), (0, 0)))
+    torch.cuda.synchronize()
+    for leaf, want in ref.items():
+        assert got[leaf].shape == want.shape, leaf
+        _grad_close(got[leaf], want, leaf, dtype)
+
+
+def test_spatial_train_on_the_card_matches_one_process(cuda_device, tmp_path):
+    """FootprintNetwork-18's and Segmentor-18's f32 train steps at 64x96,
+    batch 4, in two ranks on the card over gloo, each on its 32 rows,
+    against the same step in one process on the card: the loss terms
+    within 1e-5 + 1e-5|ref|, each gradient leaf ||d||/||ref|| < 2e-2, BN
+    running stats within 1e-5, the replicas bitwise equal after Adam, 10
+    (5) launches a rank a step."""
+    from footprints_tpu_torch.parallel.dryrun import spawn
+
+    from . import _torch_dp_worker as worker
+
+    g = torch.Generator().manual_seed(34)
+    torch.save(FootprintNetwork(18, generator=g).state_dict(), tmp_path / "fp.pt")
+    torch.save(Segmentor(18, True, generator=g).state_dict(), tmp_path / "seg.pt")
+    rng = np.random.RandomState(34)
+    image = rng.rand(4, 64, 96, 3).astype(np.float32)
+    masks = {k: (rng.rand(4, 64, 96) > 0.5).astype(np.float32)
+             for k in ("visible_ground", "all_ground", "depth_mask", "moving_object_mask",
+                       "labelled_pix")}
+    cases = {"footprint": (str(tmp_path / "fp.pt"), 10, {
+                 "image": image, "depth": (rng.rand(4, 64, 96) * 20).astype(np.float32),
+                 "ground_depth": (rng.rand(4, 64, 96) * 15).astype(np.float32),
+                 **{k: v for k, v in masks.items() if k != "labelled_pix"}}),
+             "segmentor": (str(tmp_path / "seg.pt"), 5, {
+                 "image": image, "ground_mask": masks["all_ground"],
+                 "labelled_pix": masks["labelled_pix"]})}
+    for model, (path, launches, batch) in cases.items():
+        ranks = spawn(2, worker.spatial_step_rank, model, path, batch, device="cuda",
+                      backend="gloo", spatial=2, timeout=300)
+        ref = worker.spatial_step_rank(make_mesh("cuda"), model, path, batch)
+        got = ranks[0]
+        assert [r["launches"] for r in ranks] == [launches] * 2, model
+        assert len({r["digest"] for r in ranks}) == 1, model
+        for k, v in ref["losses"].items():
+            assert abs(got["losses"][k] - v) <= 1e-5 + 1e-5 * abs(v), (model, k)
+        assert got["grads"].keys() == ref["grads"].keys()
+        for k, v in ref["grads"].items():
+            rel = np.linalg.norm(got["grads"][k] - v) / max(np.linalg.norm(v), 1e-12)
+            assert rel < 2e-2, (model, k, rel)
+        for k, v in ref["state_dict"].items():
+            if "running" in k:
+                np.testing.assert_allclose(got["state_dict"][k], v, atol=1e-5, err_msg=k)
 
 
 def test_spatial_eval_on_the_card_matches_one_process(cuda_device, tmp_path):

@@ -39,7 +39,6 @@ from footprints_tpu_torch.convert import (segmentor_jax_params_from_state_dict,
                                           segmentor_state_dict_from_jax_params)
 from footprints_tpu_torch.models import Segmentor
 from footprints_tpu_torch.parallel.dryrun import spawn
-from footprints_tpu_torch.preprocessing.segmentation import trainer as seg_trainer
 from footprints_tpu_torch.preprocessing.segmentation.losses import upsample_to
 from footprints_tpu_torch.train import step as tstep
 from footprints_tpu_torch.train.losses import bce_with_logits
@@ -172,16 +171,6 @@ def test_row_split_refuses_rows_off_the_encoder_stride(spatial, height):
     with pytest.raises(ValueError, match=f"multiple of 32 x spatial = {32 * spatial}"):
         parallel.shard_batch(mesh, {"image": np.zeros((1, height, 8, 3), np.float32)})
     assert parallel.row_split(mesh, 32 * spatial * 3) == (0, 32 * 3)
-
-
-def test_train_steps_refuse_a_spatial_mesh():
-    mesh = parallel.Mesh(4, 0, torch.device("cpu"), spatial=2)
-    net = Segmentor(18, True)
-    optimizer = tstep.make_optimizer(net, tstep.TrainStepConfig())
-    with pytest.raises(NotImplementedError, match="spatial training is not ported yet"):
-        tstep.build_train_step(net, optimizer, tstep.TrainStepConfig(), mesh)
-    with pytest.raises(NotImplementedError, match="spatial training is not ported yet"):
-        seg_trainer.build_train_step(net, optimizer, lambda s: 1e-4, mesh=mesh)
 
 
 # --- the halo'd ops ---------------------------------------------------------------
