@@ -47,7 +47,10 @@ final result line:
               loss is finite, weights_0/checkpoint.npz holds step 4, a
               second TrainManager resumes step 4 and the Adam moments, and
               the kernel ran 10 times per training forward and per
-              validation forward.  Then one GPU step against one CPU step
+              validation forward, the dgrad and wgrad kernels 10 times each
+              per step (the same counts in every rank of phases dp and
+              spatial, 5 for the Segmentor in every training phase).
+              Then one GPU step against one CPU step
               in f64 from the same weights and batch (batch 2, 192x640, the
               first validation samples): each loss term within
               1e-5 + 1e-5|ref|, each gradient leaf ||d||/||ref|| < 2e-2
@@ -62,8 +65,15 @@ final result line:
               f64 on the same card tensors (output, x, residual 1e-4 +
               1e-4|ref|; weight and b, sums of 368640 or more products,
               1e-3 max|ref| + 1e-3|ref| and ||d||/||ref|| < 1e-4), beside
-              the f32 plain version's own distance to it, then the kernel's
-              forward and the Function's cuDNN backward timed; a torch.profiler table of one
+              the f32 plain version's own distance to it, the dgrad and
+              wgrad kernels against their plain versions in f64 at the
+              same bars, then the kernel's forward, the Function's
+              backward (the dgrad and wgrad kernels) and the same
+              backward on cuDNN (cudnn_backward) timed, each backward
+              kernel beside its plain version, its cuDNN counterpart and
+              its bound, and one profiled backward that must show both
+              kernels and no cuDNN conv kernel; the same at batch 4; a
+              torch.profiler table of one
               step by category with the idle share (1 - kernel time / the
               profiled step's CUDA-event span, unclamped) and the top
               operators by input shape, in full in
@@ -145,7 +155,8 @@ final result line:
               each gradient leaf before Adam ||d||/||ref|| < 2e-2 (worst
               printed), BN running stats within 1e-5, the replicas bitwise
               equal over the ranks after Adam, 10 (5) launches a rank in
-              the forward and none in the backward; bf16 no farther from
+              the forward and none in the backward, 10 (5) of each backward
+              kernel a rank; bf16 no farther from
               the one-process f32 step than twice the one-process bf16
               step, plus 1e-3 at a loss term and 2^-8 at a gradient leaf.
               Printed, no claim: the f32 train step's ms a rank against
@@ -234,8 +245,10 @@ final result line:
               route and the op's registered bf16 gradients against
               autograd through the f32 plain version on the same
               bf16-rounded tensors (output 2e-2 + 2e-2|ref|; gradients
-              ||d||/||ref|| < 2e-2 and 2e-2 max|ref| + 2e-2|ref|), then
-              timed;
+              ||d||/||ref|| < 2e-2 and 2e-2 max|ref| + 2e-2|ref|), the
+              bf16 dgrad and wgrad kernels against their plain versions,
+              then timed beside the same backward on cuDNN in bf16; the
+              same at batch 4;
  13. gt       GT generation through footprints_tpu_torch.preprocessing.
               ground_truth_generation.generator on the GPU (where OpenCV,
               Pillow and PyYAML import; otherwise the same generator classes
@@ -339,6 +352,16 @@ KERNEL = {
     "source": "footprints_tpu_torch/csrc/fused_conv3x3.cu",
     "replaces": "footprints_tpu/ops/pallas_conv.py:110",
 }
+# the backward's two kernels; their TPU counterpart is the XLA VJP of
+# the Pallas kernel's custom_vjp wrappers (_up_bwd :221, _s2d_bwd :243,
+# _s2d_res_bwd :265)
+BWD_KERNELS = [{"name": name, "route": "cuda",
+                "source": f"footprints_tpu_torch/csrc/{name}.cu",
+                "replaces": "footprints_tpu/ops/pallas_conv.py:221"}
+               for name in ("fused_conv3x3_dgrad", "fused_conv3x3_wgrad")]
+# their launches on the main paths (the training phases), summed as the
+# phases check them
+BWD_LAUNCHES = {k["name"]: 0 for k in BWD_KERNELS}
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): f32 outside
 # the tensor cores, TF32 and bf16 on them, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -506,6 +529,119 @@ def library_call(site, x, w, b):
     if site[1] == "up2_reflect":
         xc = F.interpolate(xc, scale_factor=2, mode="nearest")
     return F.conv2d(F.pad(xc, (1, 1, 1, 1), mode="reflect"), w, b)
+
+
+def bwd_wrappers():
+    return {"fused_conv3x3_dgrad": fc.fused_conv3x3_dgrad,
+            "fused_conv3x3_wgrad": fc.fused_conv3x3_wgrad}
+
+
+def reset_bwd_counts():
+    """Set the backward kernels' counts to 0, just before a main path."""
+    for f in bwd_wrappers().values():
+        f.launches = f.bf16_launches = 0
+
+
+def bwd_counts():
+    """{kernel: [launches, bf16 launches]} of the backward kernels."""
+    return {k: [f.launches, f.bf16_launches] for k, f in bwd_wrappers().items()}
+
+
+def check_bwd_counts(fail, tag, per_rank, steps, per_step, bf16):
+    """A main path's backward-kernel launches since reset_bwd_counts, one
+    bwd_counts() per rank: each rank `per_step` of each kernel per train
+    step, all on the bf16 route when `bf16`.  Adds them to BWD_LAUNCHES."""
+    want = [steps * per_step, steps * per_step if bf16 else 0]
+    fail.check(len(per_rank) > 0 and all(v == want for r in per_rank for v in r.values()),
+               f"{tag}: backward kernel launches [all, bf16] per rank {per_rank}, expected "
+               f"{want} of each kernel")
+    for r in per_rank:
+        for k, v in r.items():
+            BWD_LAUNCHES[k] += v[0]
+    return per_rank
+
+
+def cudnn_backward(pad_mode, x, w, gz, need_x, need_w):
+    """The op's backward on cuDNN, as it ran before the dgrad and wgrad
+    kernels, kept here only as the yardstick (library_ms; no code of the port calls it): x upsampled
+    (nearest x2, at 'up2_reflect') and reflect-padded, cuDNN's dgrad and
+    wgrad (aten.convolution_backward), then the pad's and the upsample's
+    adjoints.  Returns (gx NHWC or None, gw or None)."""
+    xu = x.permute(0, 3, 1, 2)
+    if pad_mode == "up2_reflect":
+        xu = F.interpolate(xu, scale_factor=2, mode="nearest")
+    gxp, gw, _ = torch.ops.aten.convolution_backward(
+        gz.permute(0, 3, 1, 2), F.pad(xu, (1, 1, 1, 1), mode="reflect"), w, None, (1, 1),
+        (0, 0), (1, 1), False, (0, 0), 1, (need_x, need_w, False))
+    gx = None
+    if need_x:
+        gx = torch.ops.aten.reflection_pad2d_backward(gxp, xu, (1, 1, 1, 1)).permute(0, 2, 3, 1)
+        if pad_mode == "up2_reflect":
+            n, h, w_, c = x.shape
+            gx = gx.reshape(n, h, 2, w_, 2, c).sum((2, 4))
+    return gx, gw
+
+
+def bwd_bound(site, x, w, gz):
+    """Least time (ms) of one backward kernel's work in x's dtype, and what
+    bounds it: the forward's MACs (site_flops: an up site at its 4 phase
+    taps per output), 3 TF32 products per MAC in f32 on the tensor cores
+    (or f32 FMAs off them, if less), 1 bf16 product in bf16; bytes: dgrad
+    reads gz and w and writes gx (x's size), wgrad reads gz and x and
+    writes gw (w's size), each once: the same for both kernels."""
+    flops = site_flops(site)
+    if x.dtype == torch.float32:
+        ops = min(flops / PEAK_F32_FLOPS, TF32_PRODUCTS_PER_MAC * flops / PEAK_TF32_FLOPS)
+    else:
+        ops = flops / PEAK_BF16_FLOPS
+    moved = sum(t.numel() * t.element_size() for t in (gz, x, w)) / PEAK_BYTES
+    return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
+
+
+def backward_kernels(fail, tag, site, x, w, gz):
+    """The dgrad and wgrad kernels at one site on the card (x and w as the
+    op gets them, gz the pre-activation cotangent): each against its plain
+    version in f64 on the same tensors, then the ms per call (mean of 20
+    eager calls, CUDA events) of the kernel, of its plain version in x's
+    dtype (f32 sums) and of cudnn_backward for the same gradient (library),
+    beside its bound.  f32 bars: site_backward's (gx 1e-4 + 1e-4|ref|; gw
+    1e-3 max|ref| + 1e-3|ref| and ||d||/||ref|| < 1e-4); bf16: 2e-2 max|ref|
+    + 2e-2|ref| and ||d||/||ref|| < 2e-2 (the result rounded to 8 bits)."""
+    pad_mode, f32 = site[1], x.dtype == torch.float32
+    calls = {
+        "fused_conv3x3_dgrad": (
+            lambda: fc.fused_conv3x3_dgrad(gz, w, pad_mode=pad_mode),
+            lambda: fc.fused_conv3x3_dgrad_plain(gz, w, pad_mode=pad_mode),
+            lambda: cudnn_backward(pad_mode, x, w, gz, True, False),
+            lambda: fc.fused_conv3x3_dgrad_plain(gz.double(), w.double(), pad_mode=pad_mode)),
+        "fused_conv3x3_wgrad": (
+            lambda: fc.fused_conv3x3_wgrad(gz, x, pad_mode=pad_mode),
+            lambda: fc.fused_conv3x3_wgrad_plain(gz, x, pad_mode=pad_mode),
+            lambda: cudnn_backward(pad_mode, x, w, gz, False, True),
+            lambda: fc.fused_conv3x3_wgrad_plain(gz.double(), x.double(), pad_mode=pad_mode))}
+    bound_ms, bound_by = bwd_bound(site, x, w, gz)
+    out = {}
+    for name, (kernel, plain, library, reference) in calls.items():
+        got, ref = kernel(), reference()
+        torch.cuda.synchronize()
+        d = (got.double() - ref).abs()
+        rel = float((got.double() - ref).norm() / ref.norm())
+        if not f32:
+            ok = bool((d <= 2e-2 * ref.abs().max() + 2e-2 * ref.abs()).all()) and rel < 2e-2
+        elif name.endswith("dgrad"):
+            ok = bool((d <= 1e-4 + 1e-4 * ref.abs()).all())
+        else:
+            ok = bool((d <= 1e-3 * ref.abs().max() + 1e-3 * ref.abs()).all()) and rel < 1e-4
+        max_abs = d.max().item()
+        fail.check(ok and bool(torch.isfinite(got).all()) and got.dtype == x.dtype,
+                   f"{tag}: {site[0]}: {name} vs its plain version in f64: max abs "
+                   f"{max_abs}, rel {rel}")
+        del got, ref, d
+        out[name] = {"max_abs_err": max_abs, "rel_vs_f64": rel, "ok": ok,
+                     "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                     "library_ms": time_ms(library), "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+    return out
 
 
 def phase_sites(fail):
@@ -968,6 +1104,7 @@ def phase_train(fail, workdir):
 
     # the main path: counts set to 0 just before, read just after
     fused_conv3x3.launches = 0
+    reset_bwd_counts()
     torch.cuda.reset_peak_memory_stats()
     if have_data_libs:
         tm = port_main.main(argv)
@@ -976,6 +1113,8 @@ def phase_train(fail, workdir):
         tm.train()
     torch.cuda.synchronize()
     launches = fused_conv3x3.launches
+    bwd = check_bwd_counts(fail, "train", [bwd_counts()], TRAIN_STEPS, LAUNCHES_PER_FORWARD,
+                           bf16=False)[0]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     n_val_events = sum(1 for mode, _, _ in tm.logged if mode == "val")
@@ -1016,7 +1155,8 @@ def phase_train(fail, workdir):
         m.val_iter.close()
     emit("train", route=route, steps=tm.step, batch=TRAIN_BATCH,
          shape=[HEIGHT, WIDTH], depth=34, launches=launches,
-         launches_expected=expected, logged=[[m, s, l["loss"]] for m, s, l in tm.logged],
+         launches_expected=expected, backward_kernel_launches=bwd,
+         logged=[[m, s, l["loss"]] for m, s, l in tm.logged],
          checkpoint=os.path.relpath(ckpt, workdir), resumed_step=tm2.step,
          peak_memory_gib_b12=peak_gib, tree_seconds=tree_s,
          epoch_seconds=tm.train_seconds)
@@ -1061,8 +1201,9 @@ def trainer_for(run, args, batches=TRAIN_STEPS):
 def train_kernel_category(name):
     """Coarse bucket of a device kernel's name for the train-step breakdown."""
     n = name.lower()
-    if "fused_conv3x3" in n:
-        return "fused_conv3x3"
+    for kernel in ("fused_conv3x3_dgrad", "fused_conv3x3_wgrad", "fused_conv3x3"):
+        if kernel in n:
+            return kernel
     if "dgrad" in n:
         return "cudnn dgrad"
     if "wgrad" in n:
@@ -1085,21 +1226,31 @@ def train_kernel_category(name):
     return "other"
 
 
+CUDNN_CONV_CATEGORIES = ("cudnn dgrad", "cudnn wgrad", "cudnn fft conv (fwd or bwd)",
+                         "cudnn forward conv")
+
+
 def site_backward(fail, batch):
     """At each fused site at `batch`, on the card: the kernel's output and
     the op's registered gradients for x, the full weight, b and the
     residual, held against autograd through fused_conv3x3_plain in f64 on
     the same tensors, beside the f32 plain version's own distance to that
-    reference (TF32 off); then the kernel's forward (no graph) and the
-    Function's backward (cuDNN dgrad + wgrad and the pad / upsample
-    adjoints) timed, ms per call.  Bars: the output, x and the residual
-    within 1e-4 + 1e-4|ref| (those of tests/test_torch_cuda.py).  Each entry
-    of the weight and bias gradients sums N H W products (368640 to 1474560
-    here; about 1000 in the card tests, whose weight bars are 10x tighter).
-    On an H100, cuDNN's f32 wgrad of the plain version itself sits about
-    3e-5 (norm) from f64 at block4 (printed as plain_f32_rel), so the bars
-    are 1e-3 max|ref| + 1e-3|ref| elementwise and ||d||/||ref|| < 1e-4:
-    about 3x above that floor, and far below a wrong adjoint or slice."""
+    reference (TF32 off); the dgrad and wgrad kernels against their plain
+    versions (backward_kernels); then the kernel's forward (no graph), the
+    Function's backward (the elementwise ELU derivative, the dgrad and
+    wgrad kernels, the bias's sum) and the same backward on cuDNN
+    on cuDNN (library_backward_ms) timed, ms per call, and two profiled
+    backwards, which must run both kernels and no cuDNN conv kernel.  Bars:
+    the output, x and the residual within 1e-4 + 1e-4|ref| (those of
+    tests/test_torch_cuda.py).  Each entry of the weight and bias gradients
+    sums N H W products (122880 to 1474560 here; about 1000 in the card
+    tests, whose weight bars are 10x tighter).  On an H100, cuDNN's f32
+    wgrad of the plain version itself sits about 3e-5 (norm) from f64 at
+    block4 (printed as plain_f32_rel), so the bars are 1e-3 max|ref| +
+    1e-3|ref| elementwise and ||d||/||ref|| < 1e-4: about 3x above that
+    floor, and far below a wrong adjoint or slice."""
+    from torch.autograd import DeviceType
+
     rows = []
     for si, site in enumerate(sites(batch)):
         name, pad_mode, _, _, _, _, act = site
@@ -1163,8 +1314,35 @@ def site_backward(fail, batch):
         def backward():
             return torch.autograd.grad(y, list(ls.values()), gy, retain_graph=True)
 
+        gz = (gy if act != "elu" else gy * (y.detach().clamp(max=0) + 1)).contiguous()
+
+        def library_backward():  # the Function's backward on cuDNN
+            g = gy if act != "elu" else gy * (y.detach().clamp(max=0) + 1)
+            cudnn_backward(pad_mode, fixed[0], fixed[1], g, True, True)
+            return g.sum((0, 1, 2))
+
+        kernels = backward_kernels(fail, f"train_times b{batch}", site, fixed[0], fixed[1], gz)
+        # two calls in the window: the profiler drops the first kernels it
+        # sees (at every site the backward's first kernel was missing)
+        _, raw = profiled(lambda: (backward(), backward()))
+        names = {e.name() for e in raw if e.device_type() == DeviceType.CUDA}
+        cats = {train_kernel_category(n) for n in names}
+        fail.check({"fused_conv3x3_dgrad", "fused_conv3x3_wgrad"} <= cats
+                   and not cats & set(CUDNN_CONV_CATEGORIES),
+                   f"train_times: {name} at batch {batch}: the profiled backward ran "
+                   f"{sorted(names)}")
         rows.append({"site": name, "err_vs_f64": errs, "forward_ms": time_ms(forward),
-                     "backward_ms": time_ms(backward)})
+                     "backward_ms": time_ms(backward),
+                     "library_backward_ms": time_ms(library_backward),
+                     # ELU's derivative as the Function takes it (one pass)
+                     # and written out (three, as the cuDNN backward took it)
+                     "elementwise_gz_ms": time_ms(lambda: torch.ops.aten.elu_backward(
+                         gy, 1.0, 1.0, 1.0, True, y.detach())) if act == "elu" else 0.0,
+                     "elementwise_gz_three_pass_ms": time_ms(
+                         lambda: gy * (y.detach().clamp(max=0) + 1)) if act == "elu" else 0.0,
+                     "kernels": kernels,
+                     "profiled_backward_kernels": sorted(n[:80] for n in names)})
+        del gz, kernels
     return rows
 
 
@@ -1257,8 +1435,31 @@ def cudnn_batch_probe(batches=(4, 8, 12, 16)):
     return out
 
 
+def backward_totals(site_rows, decoders):
+    """A step's totals over its sites (each run once per decoder): the
+    forward kernel's and the Function's backward ms, the backward on cuDNN
+    (cudnn_backward), and per backward kernel its ms, plain_ms,
+    library_ms and bound_ms summed, the worst max_abs_err and bound_by."""
+    out = {"forward_ms_per_step": decoders * sum(r["forward_ms"] for r in site_rows),
+           "backward_ms_per_step": decoders * sum(r["backward_ms"] for r in site_rows),
+           "library_backward_ms_per_step": decoders * sum(r["library_backward_ms"]
+                                                          for r in site_rows)}
+    for k in BWD_KERNELS:
+        rows = [r["kernels"][k["name"]] for r in site_rows]
+        t = {key: decoders * sum(r[key] for r in rows)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+        out[k["name"]] = {**t, "max_abs_err": max(r["max_abs_err"] for r in rows),
+                          "bound_by": "operations" if 2 * ops >= sum(
+                              r["bound_ms"] for r in rows) else "bytes",
+                          "share_of_bound": t["bound_ms"] / t["ms"]}
+    return out
+
+
 def phase_train_times(fail, host, epoch):
-    """The train step's time, memory and breakdown at batch 12."""
+    """The train step's time, memory and breakdown at batch 12, then the
+    fused sites' forward and backward at batch 4 and 12 (site_backward).
+    Returns the backward's per-step totals by batch (backward_totals)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1321,17 +1522,22 @@ def phase_train_times(fail, host, epoch):
     with open(os.path.join(REPO, "smoke_out", "profile_train_b12.json"), "w") as f:
         json.dump({**summary, "kernels": rows, "ops": ops}, f, indent=1)
 
-    site_rows = site_backward(fail, TRAIN_BATCH)
     emit("train_times", train_step_ms_b12=ms,
          train_imgs_per_s_b12=TRAIN_BATCH / (ms * 1e-3),
          peak_memory_gib_b12=peak_gib, **split, **epoch)
-    emit("train_times", kernel=KERNEL["name"], batch=TRAIN_BATCH,
-         launches_per_step_forward=LAUNCHES_PER_FORWARD, launches_per_step_backward=0,
-         sites=site_rows, reference="autograd of the plain version, f64, same tensors",
-         bars={"y, x, residual": "1e-4 + 1e-4|ref|",
-               "w, b": "1e-3 max|ref| + 1e-3|ref|, ||d||/||ref|| < 1e-4"},
-         forward_ms_per_step=2 * sum(r["forward_ms"] for r in site_rows),
-         backward_ms_per_step=2 * sum(r["backward_ms"] for r in site_rows))
+    totals = {}
+    for batch in (4, TRAIN_BATCH):
+        site_rows = site_backward(fail, batch)
+        per_step = backward_totals(site_rows, decoders=2)
+        emit("train_times", kernel=KERNEL["name"], batch=batch,
+             launches_per_step_forward=LAUNCHES_PER_FORWARD, launches_per_step_backward=0,
+             backward_kernel_launches_per_step={k["name"]: LAUNCHES_PER_FORWARD
+                                                for k in BWD_KERNELS},
+             sites=site_rows, reference="autograd of the plain version, f64, same tensors",
+             bars={"y, x, residual": "1e-4 + 1e-4|ref|",
+                   "w, b": "1e-3 max|ref| + 1e-3|ref|, ||d||/||ref|| < 1e-4"},
+             **per_step)
+        totals[batch] = per_step
     emit("train_times", profile=summary, top=rows[:12], top_ops=ops[:8])
     probe = cudnn_batch_probe()
     fail.check(probe["benchmark_flag_restored"] and len(probe["decoder_convs"]) > 0,
@@ -1344,6 +1550,7 @@ def phase_train_times(fail, host, epoch):
          cudnn_probe_table="smoke_out/cudnn_probe.json")
     for r in probe["decoder_convs"]:
         emit("train_times", cudnn_conv=r)
+    return totals
 
 
 # --- bf16 training of the FootprintNetwork ----------------------------------------
@@ -1368,6 +1575,7 @@ def phase_train_bf16(fail, run, workdir):
     args = ["--compute_dtype", "bfloat16", "--model_name", "smoke_bf16"]
     # the main path: counts set to 0 just before, read just after
     fused_conv3x3.launches = fused_conv3x3.bf16_launches = 0
+    reset_bwd_counts()
     torch.cuda.reset_peak_memory_stats()
     if run["real"]:
         tm = port_main.main(run["argv"] + args)
@@ -1376,6 +1584,8 @@ def phase_train_bf16(fail, run, workdir):
         tm.train()
     torch.cuda.synchronize()
     launches, bf16 = fused_conv3x3.launches, fused_conv3x3.bf16_launches
+    bwd = check_bwd_counts(fail, "train_bf16", [bwd_counts()], TRAIN_STEPS,
+                           LAUNCHES_PER_FORWARD, bf16=True)[0]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_val = sum(1 for mode, _, _ in tm.logged if mode == "val")
     expected = LAUNCHES_PER_FORWARD * (TRAIN_STEPS + VAL_BATCHES * n_val)
@@ -1414,6 +1624,7 @@ def phase_train_bf16(fail, run, workdir):
     emit("train_bf16", route=run["route"], steps=tm.step, batch=TRAIN_BATCH,
          shape=[HEIGHT, WIDTH], depth=34, compute_dtype="bfloat16", heads="auto (on)",
          launches=launches, bf16_launches=bf16, launches_expected=expected,
+         backward_kernel_launches=bwd,
          logged=[[m, s_, losses["loss"]] for m, s_, losses in tm.logged],
          checkpoint=os.path.relpath(ckpt, workdir), resumed_step=tm2.step,
          packed_targets_on_card=packs, peak_memory_gib=peak_gib,
@@ -1524,9 +1735,12 @@ def phase_pretrained(fail, run, workdir):
     exact = all(torch.equal(sd[k].cpu(), v) for k, v in want.items())
     # the main path: counts set to 0 just before, read just after
     fused_conv3x3.launches = fused_conv3x3.bf16_launches = 0
+    reset_bwd_counts()
     tm.train()
     torch.cuda.synchronize()
     launches = fused_conv3x3.launches
+    check_bwd_counts(fail, "train_bf16 pretrained", [bwd_counts()], 1, LAUNCHES_PER_FORWARD,
+                     bf16=True)
     expected = LAUNCHES_PER_FORWARD * (1 + VAL_BATCHES)
     fail.check(exact and len(want) > 0,
                f"train_bf16: the step-0 encoder differs from {path}'s weights")
@@ -2258,6 +2472,7 @@ def phase_seg_train(fail, workdir):
         args = argv + ["--compute_dtype", name, "--model_name", f"seg_{name}"]
         # the main path: counts set to 0 just before, read just after
         fused_conv3x3.launches = fused_conv3x3.bf16_launches = 0
+        reset_bwd_counts()
         torch.cuda.reset_peak_memory_stats()
         if real:
             trainer = seg_main.main(args)
@@ -2266,6 +2481,8 @@ def phase_seg_train(fail, workdir):
             trainer.train()
         torch.cuda.synchronize()
         n, n_bf16 = fused_conv3x3.launches, fused_conv3x3.bf16_launches
+        bwd = check_bwd_counts(fail, f"seg_train {name}", [bwd_counts()], SEG_TRAIN_STEPS,
+                               SEG_LAUNCHES_PER_FORWARD, bf16=dtype == torch.bfloat16)[0]
         launches += n
         trainers[name] = trainer
         n_val = sum(1 for mode, _, _ in trainer.logged if mode == "val")
@@ -2294,6 +2511,7 @@ def phase_seg_train(fail, workdir):
         fail.check(ok, f"seg_train {name}: {ckpt}/checkpoint.npz missing, not f32 or "
                        f"not finite")
         runs[name] = {"launches": n, "bf16_launches": n_bf16, "launches_expected": expected,
+                      "backward_kernel_launches": bwd,
                       "logged": [[m, s_, losses["loss"]] for m, s_, losses in trainer.logged],
                       "checkpoint": os.path.relpath(ckpt, workdir),
                       "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -2409,9 +2627,11 @@ def site_backward_bf16(fail, batch):
     residual) against autograd through the f32 plain version on the same
     bf16-rounded tensors and cotangent.  Bars: the output within 2e-2 +
     2e-2|ref| (phase sites' bf16 bar); every gradient ||d||/||ref|| < 2e-2
-    and elementwise within 2e-2 max|ref| + 2e-2|ref| (cuDNN's bf16 dgrad
-    and wgrad of bf16 cotangents, each result rounded to 8 bits).  Then the
-    bf16 forward and backward timed, ms per call."""
+    and elementwise within 2e-2 max|ref| + 2e-2|ref| (the bf16 dgrad and
+    wgrad kernels of bf16 cotangents, each result rounded to 8 bits); the
+    two kernels against their plain versions (backward_kernels).  Then the
+    bf16 forward and backward timed, ms per call, beside the same backward
+    on cuDNN in bf16 (library_backward_ms)."""
     rows = []
     for si, site in enumerate(sites(batch)):
         name, pad_mode, _, _, _, _, act = site
@@ -2472,8 +2692,18 @@ def site_backward_bf16(fail, batch):
         def backward():
             return torch.autograd.grad(y, list(ls.values()), gy, retain_graph=True)
 
+        def library_backward():
+            g = gy if act != "elu" else gy * (y.detach().clamp(max=0) + 1)
+            cudnn_backward(pad_mode, fixed[0], fixed[1], g, True, True)
+            return g.sum((0, 1, 2))
+
+        gz = (gy if act != "elu" else gy * (y.detach().clamp(max=0) + 1)).contiguous()
+        kernels = backward_kernels(fail, f"seg_train_times b{batch}", site, fixed[0],
+                                   fixed[1], gz)
         rows.append({"site": name, "err_vs_f32_plain": errs, "forward_ms": time_ms(forward),
-                     "backward_ms": time_ms(backward)})
+                     "backward_ms": time_ms(backward),
+                     "library_backward_ms": time_ms(library_backward), "kernels": kernels})
+        del gz, kernels
     return rows
 
 
@@ -2581,15 +2811,15 @@ def phase_seg_train_times(fail, host, timed_trainer):
     emit("seg_train_times", model="Segmentor-34 with PSP, 192x640", steps=rows,
          trainer_imgs_per_s_with_loader=trainer_rates, loader_alone_imgs_per_s=loader_alone,
          timed_batches=SEG_TIMED_BATCHES, timed_frames=SEG_TIMED_BATCHES * SEG_TRAIN_BATCH)
-    site_rows = site_backward_bf16(fail, SEG_TRAIN_BATCH)
-    per_step = {"forward_ms_per_step": sum(r["forward_ms"] for r in site_rows),
-                "backward_ms_per_step": sum(r["backward_ms"] for r in site_rows)}
-    emit("seg_train_times", kernel=KERNEL["name"], route=ROUTES[torch.bfloat16],
-         batch=SEG_TRAIN_BATCH, sites=site_rows,
-         reference="autograd of the f32 plain version, same bf16-rounded tensors",
-         bars={"y": "2e-2 + 2e-2|ref|",
-               "x, w, b, residual": "2e-2 max|ref| + 2e-2|ref|, ||d||/||ref|| < 2e-2"},
-         **per_step)
+    for batch in (4, SEG_TRAIN_BATCH):
+        site_rows = site_backward_bf16(fail, batch)
+        per_step = backward_totals(site_rows, decoders=1)
+        emit("seg_train_times", kernel=KERNEL["name"], route=ROUTES[torch.bfloat16],
+             batch=batch, sites=site_rows,
+             reference="autograd of the f32 plain version, same bf16-rounded tensors",
+             bars={"y": "2e-2 + 2e-2|ref|",
+                   "x, w, b, residual": "2e-2 max|ref| + 2e-2|ref|, ||d||/||ref|| < 2e-2"},
+             **per_step)
     return per_step
 
 
@@ -3461,9 +3691,11 @@ def dp_footprint_rank(mesh, host, heads=True):
     step = build_train_step(mm.net, mm.optimizer, config, mesh)
     batch = shard_batch(mesh, host)
     before = fused_conv3x3.launches
+    reset_bwd_counts()
     metrics = step(0, batch)
     torch.cuda.synchronize(mesh.device)
-    return dp_summary(mesh, mm.net, mm.optimizer, metrics, fused_conv3x3.launches - before)
+    return {**dp_summary(mesh, mm.net, mm.optimizer, metrics, fused_conv3x3.launches - before),
+            "bwd_launches": bwd_counts()}
 
 
 def dp_segmentor_rank(mesh, host):
@@ -3476,9 +3708,11 @@ def dp_segmentor_rank(mesh, host):
     step = seg_trainer.build_train_step(net, optimizer, lambda s: 1e-4, torch.float32, mesh)
     batch = shard_batch(mesh, host)
     before = fused_conv3x3.launches
+    reset_bwd_counts()
     metrics = step(0, batch)
     torch.cuda.synchronize(mesh.device)
-    return dp_summary(mesh, net, optimizer, metrics, fused_conv3x3.launches - before)
+    return {**dp_summary(mesh, net, optimizer, metrics, fused_conv3x3.launches - before),
+            "bwd_launches": bwd_counts()}
 
 
 def dp_card_batch(mesh, host, heads):
@@ -3681,6 +3915,12 @@ def dp_torchrun(fail, run, workdir):
     expected = LAUNCHES_PER_FORWARD * (TRAIN_STEPS + VAL_BATCHES)
     fail.check(launches == expected, f"dp: torchrun rank 0 launched the kernel {counts}, "
                                      f"expected {expected}")
+    bwd = re.findall(r"rank 0: .*backward: (\d+) fused_conv3x3_dgrad, (\d+) "
+                     r"fused_conv3x3_wgrad", out)
+    bwd = [{"fused_conv3x3_dgrad": [int(d), 0], "fused_conv3x3_wgrad": [int(w), 0]}
+           for d, w in bwd]
+    check_bwd_counts(fail, "dp torchrun rank 0", bwd, TRAIN_STEPS, LAUNCHES_PER_FORWARD,
+                     bf16=False)
     losses = [float(v) for v in re.findall(r"Epoch 0 -- Batch 0 -- Loss (\S+)", out)]
     fail.check(len(losses) == 1 and np.isfinite(losses).all(), f"dp: logged losses {losses}")
     weights = os.path.join(workdir, "train_logs", "smoke_dp", "models", "weights_0")
@@ -3701,6 +3941,7 @@ def dp_torchrun(fail, run, workdir):
                    f"dp: the plain TrainManager resumed {resumed}")
     return launches, {"launcher": "torch.distributed.run --standalone --nproc_per_node=1",
                       "mesh": meshes, "launches": launches, "launches_expected": expected,
+                      "backward_kernel_launches": bwd,
                       "logged_loss": losses, "checkpoint": os.path.relpath(ckpt, workdir),
                       "resumed": resumed, "seconds": seconds}
 
@@ -3766,7 +4007,20 @@ def phase_dp(fail, run, workdir, host, f32_check):
                f"dp: check-step launches world 1 {w1['check']['launches']}, world 2 {per_rank}")
     launches_cd = (w1["check"]["launches"] + sum(per_rank["footprint"])
                    + sum(per_rank["segmentor"]))
-    emit("dp", torchrun=torchrun,
+    bwd = {"world_1": check_bwd_counts(fail, "dp world 1", [w1["check"]["bwd_launches"]], 1,
+                                       LAUNCHES_PER_FORWARD, bf16=False),
+           "world_2": check_bwd_counts(fail, "dp world 2", [r["check"]["bwd_launches"]
+                                                            for r in w2], 1,
+                                       LAUNCHES_PER_FORWARD, bf16=False),
+           "segmentor_world_2": check_bwd_counts(
+               fail, "dp segmentor world 2", [r["segmentor"]["bwd_launches"] for r in w2], 1,
+               SEG_LAUNCHES_PER_FORWARD, bf16=False),
+           "dryrun_per_rank": check_bwd_counts(
+               fail, "dp dryrun", [r[k]["bwd_launches"] for r in dry for k in ("f32",)], 1,
+               LAUNCHES_PER_FORWARD, bf16=False) + check_bwd_counts(
+               fail, "dp dryrun bf16", [r[k]["bwd_launches"] for r in dry for k in ("bf16",)],
+               1, LAUNCHES_PER_FORWARD, bf16=True)}
+    emit("dp", torchrun=torchrun, backward_kernel_launches_per_rank=bwd,
          dryrun={"world": DP_WORLD, "backend": "gloo", "device": "cuda:0 (all ranks)",
                  "shape": [HEIGHT, WIDTH], "depth": 34, "images_per_rank": 2,
                  "loss_f32": dry[0]["f32"]["loss"] if dry else None,
@@ -3980,7 +4234,10 @@ def spatial_train_result(net, optimizer, step, batch, device, mesh=None):
     step, and the exchanges made by the forward and the loss and by their
     backward."""
     counters = (lambda: (fused_conv3x3.launches, fused_conv3x3.bf16_launches,
-                         exchange_rows.calls, exchange_rows.backward_calls))
+                         exchange_rows.calls, exchange_rows.backward_calls,
+                         fc.fused_conv3x3_dgrad.launches, fc.fused_conv3x3_wgrad.launches,
+                         fc.fused_conv3x3_dgrad.bf16_launches,
+                         fc.fused_conv3x3_wgrad.bf16_launches))
     start, at_output = counters(), []
     hook = net.register_forward_hook(lambda *args: at_output.append(counters()))
     metrics = step(0, batch)
@@ -3989,7 +4246,9 @@ def spatial_train_result(net, optimizer, step, batch, device, mesh=None):
     end, mid = counters(), at_output[0]
     counts = {"launches_forward": mid[0] - start[0], "launches_backward": end[0] - mid[0],
               "bf16_launches": end[1] - start[1], "exchanges_forward": end[2] - start[2],
-              "exchanges_backward": end[3] - start[3]}
+              "exchanges_backward": end[3] - start[3],
+              "bwd_launches": {"fused_conv3x3_dgrad": [end[4] - start[4], end[6] - start[6]],
+                               "fused_conv3x3_wgrad": [end[5] - start[5], end[7] - start[7]]}}
     if mesh is None:
         return {"losses": {k: float(v) for k, v in metrics.items() if k != "lr"},
                 "grads": {n: p.grad.detach().float().cpu().numpy()
@@ -4108,7 +4367,11 @@ def spatial_train_checks(fail, case, model, n, hw, got, ref, spatial, smi):
                    f"spatial train {case} {compute}: launches (forward, backward, bf16) "
                    f"a rank {counts}")
         launches += sum(c[0] + c[1] for c in counts)
+        bwd = check_bwd_counts(fail, f"spatial train {case} {compute}",
+                               [r["bwd_launches"] for r in ranks], 1, per_forward,
+                               bf16=compute == "bfloat16")
         checks[compute] = {"launches_forward_backward_bf16_per_rank": counts,
+                           "backward_kernel_launches_per_rank": bwd,
                            "exchanges_forward_backward_per_rank": [
                                [r["exchanges_forward"], r["exchanges_backward"]]
                                for r in ranks]}
@@ -4268,7 +4531,7 @@ def main():
     del net
     with tempfile.TemporaryDirectory() as workdir:
         train_launches, host, epoch, run = timed("train", phase_train, fail, workdir)
-        timed("train_times", phase_train_times, fail, host, epoch)
+        bwd_totals = timed("train_times", phase_train_times, fail, host, epoch)
         bf16_launches, f32_check = timed("train_bf16", phase_train_bf16, fail, run, workdir)
         train_launches += bf16_launches
         timed("train_bf16_times", phase_train_bf16_times, fail, host, run)
@@ -4293,10 +4556,15 @@ def main():
          batch=TRAIN_BATCH, launches_per_step_forward=LAUNCHES_PER_FORWARD,
          forward_ms_per_step=2 * bf16_sites["forward_ms_per_step"],
          backward_ms_per_step=2 * bf16_sites["backward_ms_per_step"],
+         library_backward_ms_per_step=2 * bf16_sites["library_backward_ms_per_step"],
+         backward_kernels_ms_per_step={k["name"]: 2 * bf16_sites[k["name"]]["ms"]
+                                       for k in BWD_KERNELS},
          source="phase seg_train_times' per-site bf16 times at batch 12, x2 decoders")
     launches += (train_launches + dp_launches + spatial_launches + export_launches
                  + dump_launches + seg_launches + seg_train_launches)
     max_abs = max(max_abs, spatial_worst)
+    fail.check(all(n > 0 for n in BWD_LAUNCHES.values()),
+               f"the training paths launched the backward kernels {BWD_LAUNCHES} times")
     emit("seconds", **seconds)
 
     if fail:
@@ -4308,6 +4576,13 @@ def main():
                 "bound_by": ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
                              else "bytes"),
                 "library_ms": totals["library_ms"]}]
+    # the backward kernels: their launches on the training paths, their
+    # times per FootprintNetwork f32 step at batch 12 (10 launches each)
+    for k in BWD_KERNELS:
+        t = bwd_totals[TRAIN_BATCH][k["name"]]
+        kernels.append({**k, "launches": BWD_LAUNCHES[k["name"]],
+                        **{key: t[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms")}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ The decoder's full-resolution convs run through the hand-written CUDA kernel
 (ops/fused_conv.py), every time, in training as in serving: block4's
 post-concat ConvBlock (``ConvUpsampleAndConcatBlock(fused=True)``) and the
 tail ConvBlock (``decoder_tail``), 5 launches per decoder per forward.  Their
-backward is cuDNN's (the op's registered autograd).  The other convs are
+backward is the op's registered autograd: the hand-written dgrad and wgrad
+kernels, 5 launches each per decoder per step.  The other convs are
 ``F.pad(reflect)`` + ``F.conv2d``.  Tensors are NCHW views of channels_last
 memory; the kernel sites permute them to NHWC views.
 

@@ -2,8 +2,10 @@
 plain C interface, loaded with ``ctypes``.
 
 The library is built at first use into ``footprints_tpu_torch/_build/`` and
-rebuilt when the sources or flags change (the file name carries their
-hash).  The sources include no PyTorch header, so a build takes seconds.
+rebuilt when the sources, the shared header or the flags change (the file
+name carries their hash).  Each source compiles in its own ``nvcc``, all at
+once, then one link; they include no PyTorch header, so a build takes
+seconds.
 Pointers and the stream cross as ``c_void_p``; each launch function returns
 ``cudaGetLastError()``.  ``hashed_path`` and ``compile_shared`` also build
 the host-side resampler of ``native/`` (``footprints_tpu_torch/native``).
@@ -16,13 +18,17 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
-SOURCES = (PKG_DIR / "csrc" / "fused_conv3x3.cu",)
+CSRC = PKG_DIR / "csrc"
+SOURCES = tuple(CSRC / f for f in ("fused_conv3x3.cu", "fused_conv3x3_dgrad.cu",
+                                   "fused_conv3x3_wgrad.cu"))
+HEADERS = (CSRC / "fused_conv3x3_common.cuh",)
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 
 def nvcc_path():
@@ -76,25 +82,55 @@ def compile_shared(compiler, flags, sources, out, verbose=False):
 
 
 def library_path():
-    return hashed_path(BUILD_DIR, "footprints_kernels", NVCC_FLAGS, SOURCES)
+    return hashed_path(BUILD_DIR, "footprints_kernels", NVCC_FLAGS, SOURCES + HEADERS)
 
 
 def build(verbose=False):
-    """Compile the sources unless the library for their hash exists.
-    Returns the library's path.  ``verbose`` adds ``-Xptxas -v`` (registers
-    and spills per instantiation) and prints the compiler's output."""
-    return compile_shared(nvcc_path, NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ()),
-                          SOURCES, library_path(), verbose)
+    """Compile the sources unless the library for their hash exists: one
+    ``nvcc -c`` per source, all started together, then one link.  Returns
+    the library's path.  ``verbose`` adds ``-Xptxas -v`` (registers and
+    spills per instantiation) and prints the compilers' output."""
+    out = library_path()
+    if out.exists():
+        return out
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        def compile_one(src):
+            obj = Path(tmp) / (Path(src).stem + ".o")
+            cmd = [nvcc_path(), *flags, "-c", "-o", str(obj), str(src)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            return obj, proc.stdout + proc.stderr
+
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            built = list(pool.map(compile_one, SOURCES))
+        if verbose:
+            print("".join(text for _, text in built))
+        return compile_shared(nvcc_path, NVCC_FLAGS + ("-shared",),
+                              [obj for obj, _ in built], out, verbose)
 
 
 @functools.cache
 def load_library():
     """Build if needed, load, and declare every exported function's types."""
     lib = ctypes.CDLL(str(build()))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # dtype, x, w, w_stride, b, residual, y, N, Hi, Wi, Ci, Ho, Wo, Co,
     # pad_mode, act, stream
     lib.fused_conv3x3_launch.argtypes = (i, p, p, i, p, p, p, i, i, i, i, i,
                                          i, i, i, i, p)
     lib.fused_conv3x3_launch.restype = i
+    # dtype, gz, w, w_stride, gx, N, H, W, Ci, Ho, Wo, Co, pad_mode, stream
+    lib.fused_conv3x3_dgrad_launch.argtypes = (i, p, p, i, p, i, i, i, i, i, i, i, i, p)
+    lib.fused_conv3x3_dgrad_launch.restype = i
+    # N, H, W, Ci, Co, pad_mode -> f32 scratch elements
+    lib.fused_conv3x3_wgrad_scratch.argtypes = (i, i, i, i, i, i)
+    lib.fused_conv3x3_wgrad_scratch.restype = ll
+    # dtype, gz, x, scratch, scratch elements, gw, N, H, W, Ci, Ho, Wo, Co,
+    # pad_mode, stream
+    lib.fused_conv3x3_wgrad_launch.argtypes = (i, p, p, p, ll, p, i, i, i, i, i, i, i, i, p)
+    lib.fused_conv3x3_wgrad_launch.restype = i
     return lib

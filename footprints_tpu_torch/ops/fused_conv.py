@@ -6,7 +6,9 @@ footprints_tpu/ops/pallas_conv.py).
 raises); only for a CPU tensor does it run ``fused_conv3x3_plain``, the
 plain PyTorch version of the same function.  ``fused_conv3x3.launches``
 counts kernel launches, so a run can show that the decoder went through the
-kernel (``fused_conv3x3.bf16_launches``: those of the bf16 route).
+kernel (``fused_conv3x3.bf16_launches``: those of the bf16 route); the
+backward's kernels count theirs on ``fused_conv3x3_dgrad`` and
+``fused_conv3x3_wgrad``.
 
 Layout: activations are NHWC-contiguous ``[N,H,W,C]`` (the model's
 channels_last NCHW tensors permuted, a view), weights are the
@@ -40,17 +42,35 @@ output's shape to a trace.  The launch counters count at run time only.
 Gradients: ``fused_conv3x3`` itself records no autograd graph.  The three
 model-facing wrappers (``up_conv_fused``, ``conv_reflect_fused``,
 ``conv_reflect_res_fused``) call the op, whose registered autograd is the
-counterpart of the JAX package's ``custom_vjp``s (pallas_conv.py:208-276):
-the forward is the kernel (the plain version on a CPU tensor), the backward
-is the VJP of the plain composition, as there: cuDNN's dgrad and wgrad
-(``aten.convolution_backward``) on the padded input, then the adjoints of
-the reflect pad and of the nearest x2 upsample.  ELU's derivative comes from
-the saved output: ``min(y, 0) + 1``.  No backward kernel is hand-written,
-since the TPU kernel has none either.
+counterpart of the JAX package's ``custom_vjp``s (pallas_conv.py:208-276),
+whose backwards are XLA compositions: the forward is the kernel, the
+backward two more hand-written kernels (``csrc/fused_conv3x3_dgrad.cu``,
+``csrc/fused_conv3x3_wgrad.cu``), each the wrapper of a registered op
+(``footprints::fused_conv3x3_dgrad`` / ``_wgrad``) with its plain version
+beside it and its own launch counters:
+  * ``fused_conv3x3_dgrad(gz, w)``: the gradient on x, (pad o [up2])^T of
+    the transposed conv, straight to x's layout; 'reflect' in the gather
+    form with the pad's border folds, 'up2_reflect' in the phase form (the
+    4 output phases' 2x2 transposed convs with ``up2_phase_weights``, then
+    the edge pad's adjoint), as ops/s2d.py:_edge_conv_phase_bwd does;
+  * ``fused_conv3x3_wgrad(gz, x)``: the gradient on w, the reduction over
+    N H W split into fixed partial sums (no atomics: the same bits every
+    run); 'up2_reflect' in the phase form, folded back to 3x3 by
+    ``up2_phase_weights_adjoint``.
+``gz`` is the pre-activation cotangent: ELU's derivative comes from the
+saved output, ``gy * (min(y, 0) + 1)`` (one pass of ``aten.elu_backward``),
+in torch, as do the bias's gradient (``gz`` summed) and the residual's
+(``gz``).  The backward launches dgrad only when x needs a gradient and
+wgrad only when w does; on a CPU tensor it runs the plain versions (f32
+sums, f64 for f64).  Neither backward op is differentiable (no double
+backward).
 """
 
 import ctypes
+
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from ..nn.layers import conv2d, elu, reflect_pad, upsample_nearest
@@ -100,6 +120,109 @@ def up2_phase_conv_plain(x, w, b=None):
     return out.permute(2, 4, 0, 5, 1, 3).reshape(n, 2 * h, 2 * w_, -1)
 
 
+# (phase, tap) of up2_phase_weights -> the 3x3 rows (columns) summed into it
+_PHASE_TAP_ROWS = {(0, 0): (0,), (0, 1): (1, 2), (1, 0): (0, 1), (1, 1): (2,)}
+
+
+def up2_phase_weights_adjoint(g):
+    """The adjoint of ``up2_phase_weights``: ``[2,2,Co,Ci,2,2]`` ->
+    ``[Co,Ci,3,3]``.  Each 3x3 tap takes every phase tap it was summed into
+    (columns first, then rows)."""
+    cols = [[0] * 3 for _ in range(2)]  # [a][dx]: [Co,Ci,2 (ty)]
+    for a in range(2):
+        for (b, tx), dxs in _PHASE_TAP_ROWS.items():
+            for dx in dxs:
+                cols[a][dx] = cols[a][dx] + g[a, b, ..., tx]
+    out = [[0] * 3 for _ in range(3)]
+    for (a, ty), dys in _PHASE_TAP_ROWS.items():
+        for dy in dys:
+            for dx in range(3):
+                out[dy][dx] = out[dy][dx] + cols[a][dx][..., ty]
+    return torch.stack([torch.stack(row, -1) for row in out], -2)
+
+
+def _pad_adjoint(gp, mode):
+    """Adjoint of the 1-pixel 'reflect' or 'edge' pad of the two spatial
+    dims of NHWC ``gp`` [N,H+2,W+2,C] -> [N,H,W,C]: the border rows and
+    columns fold onto the rows they were copied from (rows first)."""
+    for dim in (1, 2):
+        inner = gp.narrow(dim, 1, gp.shape[dim] - 2).clone()
+        lo, hi = (1, -2) if mode == "reflect" else (0, -1)
+        inner.select(dim, lo).add_(gp.select(dim, 0))
+        inner.select(dim, hi).add_(gp.select(dim, -1))
+        gp = inner
+    return gp
+
+
+def _pad_index(n, mode, device):
+    """Source index of each of the n + 2 padded positions."""
+    i = torch.arange(-1, n + 1, device=device)
+    if mode == "reflect":
+        return i.abs().where(i < n, 2 * n - 2 - i)
+    return i.clamp(0, n - 1)
+
+
+def _acc_dtype(t):
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def fused_conv3x3_dgrad_plain(gz, w, *, pad_mode):
+    """Plain PyTorch version of the dgrad kernel: the gradient on x of
+    conv3x3(pad(x), w) (no bias, residual or activation: ``gz`` is the
+    pre-activation cotangent), NHWC [N,Ho,Wo,Co] -> [N,H,W,Ci] in gz's dtype,
+    summed in f32 (f64 for f64).  'reflect': each pixel of the padded grid
+    gathers its taps from the zero-padded cotangent, then the reflect pad's
+    border rows and columns fold back (rows 1 and H-2 take two).
+    'up2_reflect', the phase form: each output phase's cotangent through
+    its 2x2 phase-summed weights onto the edge-padded low-res grid, then the
+    edge pad's adjoint."""
+    acc = _acc_dtype(gz)
+    g, k = gz.to(acc), w.to(acc)
+    n, ho, wo, _ = g.shape
+    if pad_mode == "reflect":
+        gp = F.pad(g, (0, 0, 2, 2, 2, 2))
+        out = sum(gp[:, 2 - dy:ho + 4 - dy, 2 - dx:wo + 4 - dx] @ k[:, :, dy, dx]
+                  for dy in range(3) for dx in range(3))
+        return _pad_adjoint(out, "reflect").to(gz.dtype)
+    h, w_ = ho // 2, wo // 2
+    kp = up2_phase_weights(k)
+    out = 0
+    for a in range(2):
+        for b in range(2):
+            gp = F.pad(g[:, a::2, b::2], (0, 0, 2, 2, 2, 2))
+            out = out + sum(
+                gp[:, 2 - a - ty:h + 4 - a - ty, 2 - b - tx:w_ + 4 - b - tx]
+                @ kp[a, b, :, :, ty, tx] for ty in range(2) for tx in range(2))
+    return _pad_adjoint(out, "edge").to(gz.dtype)
+
+
+def fused_conv3x3_wgrad_plain(gz, x, *, pad_mode):
+    """Plain PyTorch version of the wgrad kernel: the gradient on w of
+    conv3x3(pad(x), w), OIHW [Co,Ci,3,3] in x's dtype, summed in f32 (f64
+    for f64): gw[co,ci,dy,dx] = sum over n, h, w of gz[n,h,w,co] *
+    xpad[n,h+dy,w+dx,ci].  'up2_reflect', the phase form: the 4 phases'
+    2x2 taps on the edge-padded low-res input, folded back to 3x3 by
+    ``up2_phase_weights_adjoint``."""
+    acc = _acc_dtype(gz)
+    g, xa = gz.to(acc), x.to(acc)
+    n, h, w_, _ = x.shape
+    mode = "reflect" if pad_mode == "reflect" else "edge"
+    xp = xa[:, _pad_index(h, mode, x.device)][:, :, _pad_index(w_, mode, x.device)]
+
+    def taps(gp, k, oy=0, ox=0):  # [Co,Ci,k,k]: gp's pixels against xp shifted by each tap
+        hh, ww = gp.shape[1:3]
+        return torch.stack([torch.stack([
+            torch.einsum("nhwo,nhwi->oi", gp,
+                         xp[:, oy + dy:oy + dy + hh, ox + dx:ox + dx + ww])
+            for dx in range(k)], -1) for dy in range(k)], -2)
+
+    if pad_mode == "reflect":
+        return taps(g, 3).to(x.dtype)
+    phases = torch.stack([torch.stack([taps(g[:, a::2, b::2], 2, a, b) for b in range(2)])
+                          for a in range(2)])
+    return up2_phase_weights_adjoint(phases).to(x.dtype)
+
+
 def _check(x, w, b, residual, pad_mode, act):
     """Raise on what the kernel does not take; returns the sizes.  Reads
     only shapes, strides, dtypes and devices, so it also runs on the fake
@@ -139,6 +262,44 @@ def _check(x, w, b, residual, pad_mode, act):
         if t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; x is "
                              f"{x.dtype} on {x.device}")
+    return n, h, w_, ci, ho, wo, co
+
+
+def _check_grad(gz, t, pad_mode, name):
+    """Raise on what the dgrad (``t`` = w) or wgrad (``t`` = x) kernel does
+    not take; returns (N, H, W, Ci, Ho, Wo, Co).  Shapes, strides, dtypes
+    and devices only, as ``_check``."""
+    if pad_mode not in PAD_MODES:
+        raise ValueError(f"pad_mode must be one of {PAD_MODES}, got {pad_mode!r}")
+    if gz.dtype not in _DTYPE_CODES and not (gz.dtype == torch.float64
+                                             and gz.device.type == "cpu"):
+        raise TypeError(f"{name} takes float32 or bfloat16 (and float64 on the CPU, "
+                        f"plain version only), got {gz.dtype} on {gz.device}")
+    if gz.dim() != 4 or not gz.is_contiguous():
+        raise ValueError(f"gz must be a contiguous NHWC tensor, got shape "
+                         f"{tuple(gz.shape)} strides {gz.stride()}")
+    if t.dtype != gz.dtype or t.device != gz.device:
+        raise ValueError(f"{name}: {t.dtype} on {t.device} against gz {gz.dtype} "
+                         f"on {gz.device}")
+    n, ho, wo, co = gz.shape
+    up = pad_mode == "up2_reflect"
+    if up and (ho % 2 or wo % 2):
+        raise ValueError(f"up2_reflect's output is even in H and W, got {ho}x{wo}")
+    h, w_ = (ho // 2, wo // 2) if up else (ho, wo)
+    if not up and (h < 2 or w_ < 2):
+        raise ValueError(f"reflect padding needs H, W >= 2, got {h}x{w_}")
+    if name.endswith("dgrad"):
+        if (t.dim() != 4 or t.shape[0] != co or t.shape[2:] != (3, 3)
+                or t.stride()[1:] != (9, 3, 1) or t.stride(0) < 9 * t.shape[1]):
+            raise ValueError(f"w must be an OIHW [{co},Ci,3,3] tensor, contiguous or an "
+                             f"input-channel slice of one, got shape {tuple(t.shape)} "
+                             f"strides {t.stride()}")
+        ci = t.shape[1]
+    else:
+        if t.dim() != 4 or t.shape[:3] != (n, h, w_) or not t.is_contiguous():
+            raise ValueError(f"x must be a contiguous NHWC [{n},{h},{w_},Ci] tensor, got "
+                             f"shape {tuple(t.shape)} strides {t.stride()}")
+        ci = t.shape[3]
     return n, h, w_, ci, ho, wo, co
 
 
@@ -209,19 +370,135 @@ def _fake(x, w, b, residual, pad_mode, act):
     return x.new_empty((n, ho, wo, co))
 
 
+def _real(t):
+    """A plain tensor outside any trace: the wrappers call the device
+    implementation directly, without the dispatcher."""
+    return (type(t) is torch.Tensor and not torch._is_functional_tensor(t)
+            and _get_current_dispatch_mode() is None)
+
+
 def _forward(x, w, b, residual, pad_mode, act):
     """The op's forward below autograd: the device implementation itself on
     real tensors, the dispatched op (its fake implementation) in a trace."""
-    if (type(x) is torch.Tensor and not torch._is_functional_tensor(x)
-            and _get_current_dispatch_mode() is None):
+    if _real(x):
         return (_launch if x.is_cuda else _plain)(x, w, b, residual, pad_mode, act)
     with torch._C._AutoDispatchBelowAutograd():
         return fused_conv3x3_op(x, w, b, residual, pad_mode, act)
 
 
+# The backward's two kernels, each its own op (schema, CPU = plain, CUDA =
+# kernel, fake), so that a trace of the forward op's registered autograd
+# (opcheck, export's fake tensors) reaches fake implementations.  Neither
+# is differentiable: their Autograd kernels run below autograd, and the
+# Function's backward is once_differentiable.
+_LIB.define("fused_conv3x3_dgrad(Tensor gz, Tensor w, str pad_mode) -> Tensor",
+            tags=(torch.Tag.needs_exact_strides,))
+_LIB.define("fused_conv3x3_wgrad(Tensor gz, Tensor x, str pad_mode) -> Tensor")
+fused_conv3x3_dgrad_op = torch.ops.footprints.fused_conv3x3_dgrad.default
+fused_conv3x3_wgrad_op = torch.ops.footprints.fused_conv3x3_wgrad.default
+
+
+def _dgrad_plain(gz, w, pad_mode):
+    _check_grad(gz, w, pad_mode, "fused_conv3x3_dgrad")
+    return fused_conv3x3_dgrad_plain(gz, w, pad_mode=pad_mode)
+
+
+def _wgrad_plain(gz, x, pad_mode):
+    _check_grad(gz, x, pad_mode, "fused_conv3x3_wgrad")
+    return fused_conv3x3_wgrad_plain(gz, x, pad_mode=pad_mode)
+
+
+def _launch_dgrad(gz, w, pad_mode):
+    """One launch of the dgrad kernel, or a raise: gx NHWC in gz's dtype."""
+    n, h, w_, ci, ho, wo, co = _check_grad(gz, w, pad_mode, "fused_conv3x3_dgrad")
+    from .build import load_library
+
+    lib = load_library()
+    gx = torch.empty((n, h, w_, ci), dtype=gz.dtype, device=gz.device)
+    with torch.cuda.device(gz.device):
+        stream = torch.cuda.current_stream(gz.device).cuda_stream
+        err = lib.fused_conv3x3_dgrad_launch(
+            _DTYPE_CODES[gz.dtype], gz.data_ptr(), w.data_ptr(), w.stride(0), gx.data_ptr(),
+            n, h, w_, ci, ho, wo, co, PAD_MODES.index(pad_mode), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"fused_conv3x3_dgrad launch failed: CUDA error {err}")
+    fused_conv3x3_dgrad.launches += 1
+    fused_conv3x3_dgrad.bf16_launches += gz.dtype == torch.bfloat16
+    return gx
+
+
+def _launch_wgrad(gz, x, pad_mode):
+    """One launch of the wgrad kernel (its partial sums, then their fixed-order
+    sum), or a raise: gw OIHW [Co,Ci,3,3], contiguous, in x's dtype."""
+    n, h, w_, ci, ho, wo, co = _check_grad(gz, x, pad_mode, "fused_conv3x3_wgrad")
+    from .build import load_library
+
+    lib = load_library()
+    mode = PAD_MODES.index(pad_mode)
+    gw = torch.empty((co, ci, 3, 3), dtype=x.dtype, device=x.device)
+    floats = lib.fused_conv3x3_wgrad_scratch(n, h, w_, ci, co, mode)
+    scratch = torch.empty(max(floats, 1), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_conv3x3_wgrad_launch(
+            _DTYPE_CODES[x.dtype], gz.data_ptr(), x.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), gw.data_ptr(), n, h, w_, ci, ho, wo, co, mode,
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"fused_conv3x3_wgrad launch failed: CUDA error {err}")
+    fused_conv3x3_wgrad.launches += 1
+    fused_conv3x3_wgrad.bf16_launches += x.dtype == torch.bfloat16
+    return gw
+
+
+def _dgrad_fake(gz, w, pad_mode):
+    n, h, w_, ci, _, _, _ = _check_grad(gz, w, pad_mode, "fused_conv3x3_dgrad")
+    return gz.new_empty((n, h, w_, ci))
+
+
+def _wgrad_fake(gz, x, pad_mode):
+    _, _, _, ci, _, _, co = _check_grad(gz, x, pad_mode, "fused_conv3x3_wgrad")
+    return x.new_empty((co, ci, 3, 3))
+
+
+def fused_conv3x3_dgrad(gz, w, *, pad_mode):
+    """The gradient on x of conv3x3(pad(x), w), NHWC: the dgrad kernel on a
+    CUDA tensor (or a raise), the plain version on a CPU tensor, the op
+    (its fake implementation) in a trace.  Records no graph."""
+    if _real(gz):
+        return (_launch_dgrad if gz.is_cuda else _dgrad_plain)(gz, w, pad_mode)
+    with torch._C._AutoDispatchBelowAutograd():
+        return fused_conv3x3_dgrad_op(gz, w, pad_mode)
+
+
+def fused_conv3x3_wgrad(gz, x, *, pad_mode):
+    """The gradient on w of conv3x3(pad(x), w), OIHW: the wgrad kernel on a
+    CUDA tensor (or a raise), the plain version on a CPU tensor, the op in
+    a trace.  Records no graph."""
+    if _real(gz):
+        return (_launch_wgrad if gz.is_cuda else _wgrad_plain)(gz, x, pad_mode)
+    with torch._C._AutoDispatchBelowAutograd():
+        return fused_conv3x3_wgrad_op(gz, x, pad_mode)
+
+
+fused_conv3x3_dgrad.launches = fused_conv3x3_dgrad.bf16_launches = 0
+fused_conv3x3_wgrad.launches = fused_conv3x3_wgrad.bf16_launches = 0
+
+_LIB.impl("fused_conv3x3_dgrad", _dgrad_plain, "CPU")
+_LIB.impl("fused_conv3x3_dgrad", _launch_dgrad, "CUDA")
+_LIB.impl("fused_conv3x3_dgrad",
+          lambda gz, w, pad_mode: fused_conv3x3_dgrad(gz, w, pad_mode=pad_mode), "Autograd")
+torch.library.register_fake("footprints::fused_conv3x3_dgrad", _dgrad_fake, lib=_LIB)
+_LIB.impl("fused_conv3x3_wgrad", _wgrad_plain, "CPU")
+_LIB.impl("fused_conv3x3_wgrad", _launch_wgrad, "CUDA")
+_LIB.impl("fused_conv3x3_wgrad",
+          lambda gz, x, pad_mode: fused_conv3x3_wgrad(gz, x, pad_mode=pad_mode), "Autograd")
+torch.library.register_fake("footprints::fused_conv3x3_wgrad", _wgrad_fake, lib=_LIB)
+
+
 class _FusedConv3x3(torch.autograd.Function):
-    """The op's autograd: forward through the device implementation, the
-    VJP of the plain composition backward."""
+    """The op's autograd: the forward kernel forward, the dgrad and wgrad
+    kernels backward (their plain versions on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, x, w, b, residual, pad_mode, act):
@@ -231,28 +508,19 @@ class _FusedConv3x3(torch.autograd.Function):
         return y
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, gy):
         """Gradients (x, w, b, residual) of act(conv3x3(pad(x)) + b
         [+ residual]), None where that input needs none; the residual's is
         the pre-activation gradient.  gy: NHWC [N,Ho,Wo,Co]."""
         x, w, y = ctx.saved_tensors
         need_x, need_w, need_b, need_r = ctx.needs_input_grad[:4]
-        gz = gy if y is None else gy * (y.clamp(max=0) + 1)
-        gx = gw = None
-        if need_x or need_w:
-            up = ctx.pad_mode == "up2_reflect"
-            xu = x.permute(0, 3, 1, 2)
-            if up:
-                xu = upsample_nearest(xu, 2)
-            gxp, gw, _ = torch.ops.aten.convolution_backward(
-                gz.permute(0, 3, 1, 2), reflect_pad(xu, 1), w, None, (1, 1),
-                (0, 0), (1, 1), False, (0, 0), 1, (need_x, need_w, False))
-            if need_x:
-                gx = torch.ops.aten.reflection_pad2d_backward(
-                    gxp, xu, (1, 1, 1, 1)).permute(0, 2, 3, 1)
-                if up:  # adjoint of pixel replication: sum each 2x2 block
-                    n, h, w_, c = x.shape
-                    gx = gx.reshape(n, h, 2, w_, 2, c).sum((2, 4))
+        # ELU's derivative from the saved output, gy * (min(y, 0) + 1), in
+        # one pass (three for the same ops written out; the same f32 bits)
+        gz = (gy if y is None else torch.ops.aten.elu_backward(
+            gy, 1.0, 1.0, 1.0, True, y)).contiguous()
+        gx = fused_conv3x3_dgrad(gz, w, pad_mode=ctx.pad_mode) if need_x else None
+        gw = fused_conv3x3_wgrad(gz, x, pad_mode=ctx.pad_mode) if need_w else None
         gb = gz.sum((0, 1, 2)) if need_b else None
         return gx, gw, gb, gz if need_r else None, None, None
 

@@ -35,7 +35,7 @@ import torch.multiprocessing as mp
 
 from ..data.compact import BatchCompactor, decompact_on_device
 from ..model_manager import ModelManager
-from ..ops.fused_conv import fused_conv3x3
+from ..ops.fused_conv import fused_conv3x3, fused_conv3x3_dgrad, fused_conv3x3_wgrad
 from ..train.losses import TARGET_KEYS
 from ..train.step import TrainStepConfig, build_train_step
 from ..utils import select_device
@@ -139,14 +139,19 @@ def _step(mesh, batch, depth, config):
     sync_batch_norm(mm.net, mesh)
     replicate_tree(mesh, mm.net)
     step = build_train_step(mm.net, mm.optimizer, config, mesh)
-    before = (fused_conv3x3.launches, fused_conv3x3.bf16_launches)
+    counts = (lambda: [fused_conv3x3.launches, fused_conv3x3.bf16_launches]
+              + [n for f in (fused_conv3x3_dgrad, fused_conv3x3_wgrad)
+                 for n in (f.launches, f.bf16_launches)])
+    before = counts()
     metrics = step(0, batch)
     loss = float(all_reduce_mean(mesh, metrics["loss"]))
     if not np.isfinite(loss):
         raise RuntimeError(f"non-finite loss {loss}")
+    d = [a - b for a, b in zip(counts(), before)]
     return {"loss": loss, "digest": check_replicas(mesh, mm.net, mm.optimizer, config),
-            "launches": fused_conv3x3.launches - before[0],
-            "bf16_launches": fused_conv3x3.bf16_launches - before[1]}
+            "launches": d[0], "bf16_launches": d[1],
+            # the backward kernels': [launches, bf16 launches] each
+            "bwd_launches": {"fused_conv3x3_dgrad": d[2:4], "fused_conv3x3_wgrad": d[4:6]}}
 
 
 def _dryrun_rank(mesh, height, width, depth):
@@ -175,7 +180,7 @@ def dryrun_multichip(n, *, device="cuda", height=192, width=640, depth=34):
     """One f32 and one bf16 packed-head data-parallel step over ``n`` ranks,
     replicas checked bitwise after each.  Returns the ranks' results: per
     step the global loss, the replica digest and this rank's kernel
-    launches (all and bf16)."""
+    launches (all and bf16), the backward kernels' in ``bwd_launches``."""
     results = spawn(n, _dryrun_rank, height, width, depth, device=device)
     print(f"dryrun_multichip({n}): ok, loss={results[0]['f32']['loss']:.4f} (f32) / "
           f"{results[0]['bf16']['loss']:.4f} (bf16, packed heads), replicas bitwise equal")

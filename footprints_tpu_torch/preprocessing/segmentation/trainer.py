@@ -35,7 +35,8 @@ from ...core.config import load_config, readlines
 from ...data.compact import BatchCompactor, decompact_on_device
 from ...data.loader import DataLoader, DevicePrefetcher
 from ...models import Segmentor
-from ...ops.fused_conv import fused_conv3x3
+from ...ops.fused_conv import (fused_conv3x3, fused_conv3x3_dgrad,
+                               fused_conv3x3_wgrad)
 from ...parallel import (all_reduce_gradients, any_rank, barrier, initialize, make_mesh,
                          mean_over_ranks, rank_seed, replicate_tree, sync_batch_norm)
 from ...parallel.halo import shard_rows, spatial_mesh
@@ -205,7 +206,9 @@ class Trainer:
                 signal.signal(signal.SIGTERM, prev_handler)
             self.train_seconds = time.time() - self.start_time
         print(f"training complete! rank {self.mesh.rank}: {fused_conv3x3.launches} "
-              f"fused_conv3x3 launches in this process, {fused_conv3x3.bf16_launches} bf16")
+              f"fused_conv3x3 launches in this process, {fused_conv3x3.bf16_launches} bf16; "
+              f"backward: {fused_conv3x3_dgrad.launches} fused_conv3x3_dgrad, "
+              f"{fused_conv3x3_wgrad.launches} fused_conv3x3_wgrad")
 
     def _on_preempt(self, signum, frame):
         print("SIGTERM received: will checkpoint after the current step...")

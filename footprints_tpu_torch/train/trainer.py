@@ -35,7 +35,8 @@ from ..core.config import load_config, readlines
 from ..data import DataLoader, DevicePrefetcher, get_dataset_class
 from ..data.compact import BatchCompactor, decompact_on_device
 from ..model_manager import ModelManager
-from ..ops.fused_conv import fused_conv3x3
+from ..ops.fused_conv import (fused_conv3x3, fused_conv3x3_dgrad,
+                              fused_conv3x3_wgrad)
 from ..parallel import (any_rank, barrier, initialize, make_mesh, rank_seed,
                         replicate_tree, sync_batch_norm)
 from ..utils import sec_to_hm_str
@@ -204,7 +205,9 @@ class TrainManager:
                 signal.signal(signal.SIGTERM, prev_handler)
             self.train_seconds = time.time() - self.start_time
         print(f"training complete! rank {self.mesh.rank}: {fused_conv3x3.launches} "
-              f"fused_conv3x3 launches in this process, {fused_conv3x3.bf16_launches} bf16")
+              f"fused_conv3x3 launches in this process, {fused_conv3x3.bf16_launches} bf16; "
+              f"backward: {fused_conv3x3_dgrad.launches} fused_conv3x3_dgrad, "
+              f"{fused_conv3x3_wgrad.launches} fused_conv3x3_wgrad")
 
     def _on_preempt(self, signum, frame):
         print("SIGTERM received: will checkpoint after the current step...")

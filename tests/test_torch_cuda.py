@@ -166,10 +166,10 @@ def test_kernel_without_bias_or_residual(cuda_device):
 def test_opcheck_cuda(cuda_device, dtype, pad_mode, with_res):
     """torch.library.opcheck on the op's CUDA implementation: schema, fake
     implementation, registered autograd and its use under tracing.  The
-    check runs the backward twice (eager and traced), and the reflect pad's
-    adjoint adds with atomics, in another order each run: in bf16 that moves
-    a gradient by its rounding, so bf16 is compared at the bf16 bar of the
-    fused sites (2e-2), f32 at opcheck's defaults."""
+    check compares the backward it runs eagerly (the dgrad and wgrad
+    kernels) with the one it traces; bf16 is compared at the bf16 bar of
+    the fused sites (2e-2), since each gradient is rounded to 8 bits, f32
+    at opcheck's defaults."""
     x, w, b, r = (t.requires_grad_() for t in _case(cuda_device, pad_mode, (6, 10),
                                                     16, 8, dtype))
     tol = {"rtol": 2e-2, "atol": 2e-2} if dtype == torch.bfloat16 else {}
@@ -231,12 +231,12 @@ def test_model_gpu_forward_matches_cpu(cuda_device):
                                      ("res", (2, 2))])
 @pytest.mark.parametrize("act", ["elu", "none"])
 def test_fused_grads_match_cpu_autograd_of_plain(cuda_device, kind, hw, act):
-    """The autograd wrappers on the card (kernel forward, cuDNN backward)
-    against CPU autograd through the plain version; w is an input-channel
-    slice view, as block4 passes it.  TF32 off.  Bars: 1e-4 + 1e-4|ref| for
-    x, b and the residual; the weight gradient sums N H W (about 1000)
-    products of O(1) terms, which cuDNN's wgrad algorithms add in other
-    orders with errors that scale with the sums, so its bar is elementwise
+    """The autograd wrappers on the card (the kernel forward, the dgrad and
+    wgrad kernels backward) against CPU autograd through the plain version;
+    w is an input-channel slice view, as block4 passes it.  TF32 off.  Bars:
+    1e-4 + 1e-4|ref| for x, b and the residual; the weight gradient sums
+    N H W (about 1000) products of O(1) terms, added in another order with
+    errors that scale with the sums, so its bar is elementwise
     1e-4 max|ref| + 1e-4|ref|, and ||d|| / ||ref|| < 1e-5 over the tensor."""
     pad_mode = "up2_reflect" if kind == "up" else "reflect"
     g = torch.Generator().manual_seed(21)
@@ -405,8 +405,8 @@ def test_overlapped_dump_is_byte_identical_to_serial(cuda_device, model):
                                      ("res", (13, 37)), ("res", (2, 2))])
 @pytest.mark.parametrize("act", ["elu", "none"])
 def test_bf16_fused_grads_match_f32_plain_autograd(cuda_device, kind, hw, act):
-    """The bf16 route under autograd (the kernel's bf16 forward, cuDNN's bf16
-    dgrad and wgrad) against autograd through the f32 plain version on the
+    """The bf16 route under autograd (the kernel's bf16 forward, the bf16
+    dgrad and wgrad kernels) against autograd through the f32 plain version on the
     same bf16-rounded inputs and cotangent; w a slice view as block4 passes
     it.  Bars: the output 2e-2 + 2e-2|ref|; every gradient ||d||/||ref|| <
     2e-2 and elementwise within 2e-2 max|ref| + 2e-2|ref| (each result
@@ -451,6 +451,122 @@ def test_bf16_fused_grads_match_f32_plain_autograd(cuda_device, kind, hw, act):
         else:
             torch.testing.assert_close(a, e, atol=2e-2 * e.abs().max().item(), rtol=2e-2)
             assert (a - e).norm() < 2e-2 * e.norm()
+
+
+def _bwd_case(device, pad_mode, hw, ci, co, dtype, seed):
+    """Seeded x [2,H,W,Ci], w [Co,Ci,3,3] and a pre-activation cotangent gz
+    of the site's output shape, on `device` in `dtype`."""
+    g = torch.Generator().manual_seed(seed)
+    ho, wo = hw if pad_mode == "reflect" else (2 * hw[0], 2 * hw[1])
+    x = torch.randn(2, *hw, ci, generator=g)
+    w = torch.randn(co, ci, 3, 3, generator=g) * 0.1
+    gz = torch.randn(2, ho, wo, co, generator=g)
+    return [t.to(device=device, dtype=dtype) for t in (x, w, gz)]
+
+
+def _bwd_launches():
+    return (fc.fused_conv3x3_dgrad.launches, fc.fused_conv3x3_wgrad.launches,
+            fc.fused_conv3x3_dgrad.bf16_launches, fc.fused_conv3x3_wgrad.bf16_launches)
+
+
+def _bwd_close(got, ref, leaf, dtype):
+    """The f32 bars of test_fused_grads_match_cpu_autograd_of_plain: gx within
+    1e-4 + 1e-4|ref|; gw, sums of N H W products, within 1e-4 max|ref| +
+    1e-4|ref| and ||d||/||ref|| < 1e-5.  bf16, those of
+    test_bf16_fused_grads_match_f32_plain_autograd: 2e-2 max|ref| +
+    2e-2|ref| and ||d||/||ref|| < 2e-2 for both (each result rounded to 8
+    bits)."""
+    got, ref = got.double(), ref.double()
+    if dtype == torch.float32:
+        atol = 1e-4 * ref.abs().max().item() if leaf == "w" else 1e-4
+        torch.testing.assert_close(got, ref, atol=atol, rtol=1e-4, msg=leaf)
+        if leaf == "w":
+            assert (got - ref).norm() <= 1e-5 * ref.norm(), leaf
+    else:
+        torch.testing.assert_close(got, ref, atol=2e-2 * ref.abs().max().item(), rtol=2e-2,
+                                   msg=leaf)
+        assert (got - ref).norm() < 2e-2 * ref.norm(), leaf
+
+
+@pytest.mark.parametrize("pad_mode,hw", [("reflect", (13, 37)), ("reflect", (2, 2)),
+                                         ("reflect", (3, 2)), ("reflect", (2, 19)),
+                                         ("up2_reflect", (7, 19)), ("up2_reflect", (1, 1)),
+                                         ("up2_reflect", (2, 1))])
+@pytest.mark.parametrize("ci,co", [(64, 32), (32, 32), (64, 64), (20, 6), (3, 64), (64, 70),
+                                   (5, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain(cuda_device, pad_mode, hw, ci, co, dtype):
+    """fused_conv3x3_dgrad and fused_conv3x3_wgrad on the card against their
+    plain versions in f64 on the same (bf16-rounded) tensors, at ragged and
+    tiny shapes (both reflect folds on one row at H = 2 or 3, all 16 phase
+    taps clamped onto one pixel at 1x1), Ci = 32 (tail conv2), channel
+    counts that are not multiples of the tiles or of 4 (plain staging), and
+    each kernel launched once per call, on its dtype's route."""
+    x, w, gz = _bwd_case(cuda_device, pad_mode, hw, ci, co, dtype, seed=ci + co + hw[0])
+    before = _bwd_launches()
+    gx = fc.fused_conv3x3_dgrad(gz, w, pad_mode=pad_mode)
+    gw = fc.fused_conv3x3_wgrad(gz, x, pad_mode=pad_mode)
+    torch.cuda.synchronize()
+    bf16 = int(dtype == torch.bfloat16)
+    assert tuple(a - b for a, b in zip(_bwd_launches(), before)) == (1, 1, bf16, bf16)
+    assert gx.dtype == gw.dtype == dtype and gx.shape == x.shape and gw.shape == w.shape
+    assert gw.is_contiguous()
+    ref_x = fc.fused_conv3x3_dgrad_plain(gz.double(), w.double(), pad_mode=pad_mode)
+    ref_w = fc.fused_conv3x3_wgrad_plain(gz.double(), x.double(), pad_mode=pad_mode)
+    _bwd_close(gx, ref_x, "x", dtype)
+    _bwd_close(gw, ref_w, "w", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode", ["reflect", "up2_reflect"])
+@pytest.mark.parametrize("ci_lo,ci_hi", [(3, 20), (64, 128), (0, 32)])
+def test_backward_kernels_slice_view_weight_and_unaligned_inputs(cuda_device, dtype, pad_mode,
+                                                                 ci_lo, ci_hi):
+    """dgrad reads w as an input-channel slice view (odd offsets included,
+    as block4 passes its halves); gz and x at addresses that are not 16-byte
+    aligned (the cotangent's halo staged with plain loads)."""
+    ci = ci_hi - ci_lo
+    g = torch.Generator().manual_seed(ci_lo + 7)
+    full = (torch.randn(24, 128, 3, 3, generator=g) * 0.1).to(cuda_device, dtype)
+    w = full[:, ci_lo:ci_hi]
+    hw = (11, 13)
+    ho, wo = hw if pad_mode == "reflect" else (22, 26)
+    x = torch.randn(2 * 11 * 13 * ci + 1, generator=g).to(cuda_device, dtype)[1:].view(
+        2, 11, 13, ci)
+    gz = torch.randn(2 * ho * wo * 24 + 1, generator=g).to(cuda_device, dtype)[1:].view(
+        2, ho, wo, 24)
+    gx = fc.fused_conv3x3_dgrad(gz, w, pad_mode=pad_mode)
+    gw = fc.fused_conv3x3_wgrad(gz, x, pad_mode=pad_mode)
+    _bwd_close(gx, fc.fused_conv3x3_dgrad_plain(gz.double(), w.double(), pad_mode=pad_mode),
+               "x", dtype)
+    _bwd_close(gw, fc.fused_conv3x3_wgrad_plain(gz.double(), x.double(), pad_mode=pad_mode),
+               "w", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode,hw,ci,co", [("reflect", (96, 320), 32, 32),
+                                               ("up2_reflect", (48, 160), 64, 64)])
+def test_backward_kernels_are_deterministic(cuda_device, dtype, pad_mode, hw, ci, co):
+    """Two calls give the same bits: no atomics; wgrad's partial sums over
+    many blocks are added in a fixed order."""
+    x, w, gz = _bwd_case(cuda_device, pad_mode, hw, ci, co, dtype, seed=31)
+    first = (fc.fused_conv3x3_dgrad(gz, w, pad_mode=pad_mode),
+             fc.fused_conv3x3_wgrad(gz, x, pad_mode=pad_mode))
+    second = (fc.fused_conv3x3_dgrad(gz, w, pad_mode=pad_mode),
+              fc.fused_conv3x3_wgrad(gz, x, pad_mode=pad_mode))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode", ["reflect", "up2_reflect"])
+def test_opcheck_backward_ops_cuda(cuda_device, dtype, pad_mode):
+    """torch.library.opcheck on the backward ops' CUDA implementations:
+    schema, fake implementation, and their use under tracing.  Neither op is
+    differentiable, so no input requires grad."""
+    x, w, gz = _bwd_case(cuda_device, pad_mode, (6, 10), 16, 8, dtype, seed=9)
+    torch.library.opcheck(fc.fused_conv3x3_dgrad_op, (gz, w, pad_mode))
+    torch.library.opcheck(fc.fused_conv3x3_wgrad_op, (gz, x, pad_mode))
 
 
 def _seg_batch(n, h, w, seed):
@@ -501,7 +617,7 @@ def test_seg_bf16_step_runs_the_bf16_route(cuda_device):
     """The mixed step on the card: 5 launches, all of the bf16 route; f32
     master params and gradients; losses within 1e-2 of the f32 step's from
     the same weights, and not equal to them; its gradient (cuDNN's bf16
-    convs, the kernel's bf16 route, the mixed BN's backward on CUDA) no
+    convs, the kernels' bf16 routes, the mixed BN's backward on CUDA) no
     farther from an f64 CPU step than twice the CPU bf16 step's distance
     (the CPU path is held against the JAX package in
     tests/test_torch_seg_step.py): the whole gradient, and each leaf plus
@@ -585,6 +701,34 @@ def test_footprint_bf16_step_with_packed_heads_runs_the_bf16_route(cuda_device):
         gpu, cpu = ((g[k] - v).norm().item() / max(v.norm().item(), 1e-30)
                     for g in (g16, g16_cpu))
         assert gpu <= 2 * cpu + 1e-3, (k, gpu, cpu)
+
+
+@pytest.mark.parametrize("model", ["footprint", "segmentor"])
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_train_steps_launch_the_backward_kernels(cuda_device, model, compute):
+    """A train step's backward runs the dgrad and wgrad kernels once per
+    site: 10 each for the FootprintNetwork (5 sites x 2 decoders), 5 each
+    for the Segmentor, all on the bf16 route in the mixed step; the forward
+    kernel's 10 (5) launches are all in the forward."""
+    before = _bwd_launches()
+    if model == "footprint":
+        g = torch.Generator().manual_seed(29)
+        batch = {"image": torch.rand(2, 64, 128, 3, generator=g),
+                 "depth": torch.rand(2, 64, 128, generator=g) * 20,
+                 "ground_depth": torch.rand(2, 64, 128, generator=g) * 15,
+                 **{k: (torch.rand(2, 64, 128, generator=g) > 0.5).float()
+                    for k in ("visible_ground", "all_ground", "depth_mask",
+                              "moving_object_mask")}}
+        _, forward, _, _ = _footprint_step(cuda_device, batch, compute=compute,
+                                           heads=compute == "bfloat16")
+        per = 10
+    else:
+        _, forward, _, _ = _seg_step(cuda_device, _seg_batch(2, 64, 128, 29),
+                                     compute=getattr(torch, compute))
+        per = 5
+    bf16 = per if compute == "bfloat16" else 0
+    assert forward == (per, bf16)
+    assert tuple(a - b for a, b in zip(_bwd_launches(), before)) == (per, per, bf16, bf16)
 
 
 def _gt_window(n=76, h=192, w=640):
@@ -789,7 +933,7 @@ def test_seam_site_gradients_give_the_unsharded_gradients(cuda_device, dtype, sp
     b and residual gradients, the shards' halo rows' gradients added back
     to the rows they were copied from (here by autograd through the slices
     that made the shards) and w's and b's summed, are the unsharded
-    kernel's; the backward launches no kernel."""
+    kernel's; the backward launches no forward kernel."""
     g = torch.Generator().manual_seed(50 + spatial)
     low = torch.randn(2, 8 * spatial, 40, 64, generator=g)
     skip = torch.randn(2, 16 * spatial, 80, 64, generator=g)

@@ -58,7 +58,10 @@ def test_main_trains_under_torchrun_and_resumes_at_world_1(tmp_path):
     out = _torchrun("footprints_tpu_torch.main", argv, tmp_path)
     losses = re.findall(rf"Epoch 0 -- Batch 0 -- Loss ({NUMBER})", out)
     assert len(losses) == 2 and losses[0] == losses[1] and np.isfinite(float(losses[0]))
-    assert sorted(re.findall(r"data parallel: (.*)", out)) == [
+    # each rank's message, wherever it lands: the two ranks share the pipe,
+    # and a message and its newline are two writes
+    ranks = re.findall(r"data parallel: (rank \d+ of \d+ on \S+ over (?:gloo|nccl))", out)
+    assert sorted(ranks) == [
         "rank 0 of 2 on cpu over gloo", "rank 1 of 2 on cpu over gloo"]
     assert out.count("validating...") == 2
     assert out.count("saving checkpoint to") == 1
@@ -77,7 +80,10 @@ def test_segmentation_main_trains_under_torchrun_and_resumes(tmp_path):
     argv = seg_argv(tmp_path, str(config), "--device", "cpu", "--model_name", "dp",
                     "--log_freq", "1")
     out = _torchrun("footprints_tpu_torch.preprocessing.segmentation.main", argv, tmp_path)
-    assert sorted(re.findall(r"data parallel: (.*)", out)) == [
+    # each rank's message, wherever it lands: the two ranks share the pipe,
+    # and a message and its newline are two writes
+    ranks = re.findall(r"data parallel: (rank \d+ of \d+ on \S+ over (?:gloo|nccl))", out)
+    assert sorted(ranks) == [
         "rank 0 of 2 on cpu over gloo", "rank 1 of 2 on cpu over gloo"]
     train = re.findall(rf"Epoch 0 -- Step (\d+) -- Train Loss ({NUMBER}) -- Val Loss ({NUMBER})",
                        out)
