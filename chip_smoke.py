@@ -72,7 +72,9 @@ final result line:
               backward on cuDNN (cudnn_backward) timed, each backward
               kernel beside its plain version, its cuDNN counterpart and
               its bound, and one profiled backward that must show both
-              kernels and no cuDNN conv kernel; the same at batch 4; a
+              kernels' device kernels (dgrad's weight pre-pack and main
+              kernel, wgrad's partial sums and their sum) and no cuDNN
+              conv kernel; the same at batch 4; a
               torch.profiler table of one
               step by category with the idle share (1 - kernel time / the
               profiled step's CUDA-event span, unclamped) and the top
@@ -84,6 +86,14 @@ final result line:
               batch, with the default heuristics and with
               torch.backends.cudnn.benchmark on (restored after), and the
               shapes and batches on a cliff (smoke_out/cudnn_probe.json);
+  8a. probe  the clock64() probe (footprints_tpu_torch/ops/probe.py, its
+              library built beside the main one during phase 2) of the dgrad
+              and wgrad kernels at batch 12 on tail.conv1 and
+              block4.post.conv2, f32 and bf16: one JSON line per kernel with
+              the shares of a block's cycles spent waiting (on copies,
+              mbarriers, barriers), staging (issuing copies, the f32
+              split), in the MMAs and in the epilogue, and the blocks
+              resident per SM; the launch counters do not move;
   8b. train_bf16  on phase 7's data, main --mode train --compute_dtype
               bfloat16 (the packed heads on by 'auto'): 4 steps and the
               step-0 validation, 50 launches all on the bf16 route, f32
@@ -362,6 +372,12 @@ BWD_KERNELS = [{"name": name, "route": "cuda",
 # their launches on the main paths (the training phases), summed as the
 # phases check them
 BWD_LAUNCHES = {k["name"]: 0 for k in BWD_KERNELS}
+# the device kernels of one call of each: dgrad's weight pre-pack and main
+# kernel, wgrad's partial sums and their fixed-order sum
+BWD_DEVICE_KERNELS = ("fused_conv3x3_dgrad_pack_kernel", "fused_conv3x3_dgrad_kernel",
+                      "fused_conv3x3_wgrad_partial_kernel", "fused_conv3x3_wgrad_reduce_kernel")
+# the probe's sites (phase probe): an up site and a reflect site of 64 channels
+PROBE_SITES = ("tail.conv1", "block4.post.conv2")
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): f32 outside
 # the tensor cores, TF32 and bf16 on them, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -641,6 +657,38 @@ def backward_kernels(fail, tag, site, x, w, gz):
                      "ms": time_ms(kernel), "plain_ms": time_ms(plain),
                      "library_ms": time_ms(library), "bound_ms": bound_ms,
                      "bound_by": bound_by}
+    return out
+
+
+def phase_probe(fail, probe_build):
+    """The clock64() probe (ops/probe.py) of the dgrad and wgrad kernels at
+    batch 12 on PROBE_SITES, f32 and bf16: per kernel, the shares of a
+    block's cycles spent waiting, staging, in the MMAs and in the epilogue,
+    and the blocks resident on an SM.  The probe's library was
+    built beside the main one (`probe_build`, a future); its launches do not
+    count."""
+    from footprints_tpu_torch.ops.probe import probe_backward
+
+    probe_build.result()
+    out = []
+    for si, site in enumerate(sites(TRAIN_BATCH)):
+        if site[0] not in PROBE_SITES:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, _, _ = site_inputs(site, dtype, seed=800 + si)
+            n, h, w_, _ = x.shape
+            f = 1 if site[1] == "reflect" else 2
+            gz = torch.randn(n, f * h, f * w_, site[3], device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(900 + si)).to(dtype)
+            before = bwd_counts()
+            for kind, t in (("dgrad", w), ("wgrad", x)):
+                row = {"site": site[0], "dtype": str(dtype).replace("torch.", ""),
+                       "kernel": f"fused_conv3x3_{kind}", "batch": TRAIN_BATCH,
+                       **probe_backward(kind, gz, t, site[1])}
+                emit("probe", **row)
+                out.append(row)
+            fail.check(bwd_counts() == before, f"probe: the probe's launches moved the "
+                       f"counters {before} -> {bwd_counts()}")
     return out
 
 
@@ -1240,7 +1288,8 @@ def site_backward(fail, batch):
     Function's backward (the elementwise ELU derivative, the dgrad and
     wgrad kernels, the bias's sum) and the same backward on cuDNN
     on cuDNN (library_backward_ms) timed, ms per call, and two profiled
-    backwards, which must run both kernels and no cuDNN conv kernel.  Bars:
+    backwards, which must run the BWD_DEVICE_KERNELS and no cuDNN conv
+    kernel.  Bars:
     the output, x and the residual within 1e-4 + 1e-4|ref| (those of
     tests/test_torch_cuda.py).  Each entry of the weight and bias gradients
     sums N H W products (122880 to 1474560 here; about 1000 in the card
@@ -1328,6 +1377,7 @@ def site_backward(fail, batch):
         names = {e.name() for e in raw if e.device_type() == DeviceType.CUDA}
         cats = {train_kernel_category(n) for n in names}
         fail.check({"fused_conv3x3_dgrad", "fused_conv3x3_wgrad"} <= cats
+                   and all(any(k in n for n in names) for k in BWD_DEVICE_KERNELS)
                    and not cats & set(CUDNN_CONV_CATEGORIES),
                    f"train_times: {name} at batch {batch}: the profiled backward ran "
                    f"{sorted(names)}")
@@ -4511,6 +4561,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
+    # the probe's library (phase probe) builds beside the main one
+    probe_pool = ThreadPoolExecutor(1)
+    probe_build = probe_pool.submit(build.build_probe)
     build.build(verbose=True)
     build.load_library()
     emit("build", seconds=time.perf_counter() - t0, library=str(build.library_path()))
@@ -4532,6 +4585,8 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         train_launches, host, epoch, run = timed("train", phase_train, fail, workdir)
         bwd_totals = timed("train_times", phase_train_times, fail, host, epoch)
+        timed("probe", phase_probe, fail, probe_build)
+        probe_pool.shutdown()
         bf16_launches, f32_check = timed("train_bf16", phase_train_bf16, fail, run, workdir)
         train_launches += bf16_launches
         timed("train_bf16_times", phase_train_bf16_times, fail, host, run)

@@ -7,8 +7,12 @@ name carries their hash).  Each source compiles in its own ``nvcc``, all at
 once, then one link; they include no PyTorch header, so a build takes
 seconds.
 Pointers and the stream cross as ``c_void_p``; each launch function returns
-``cudaGetLastError()``.  ``hashed_path`` and ``compile_shared`` also build
-the host-side resampler of ``native/`` (``footprints_tpu_torch/native``).
+``cudaGetLastError()``.  ``build_probe`` builds the backward's two sources
+again under ``-DFOOTPRINTS_PROBE`` into a library of their own for the
+clock64() probe (``ops/probe.py``), with only the kernels the probe's sites
+run; nothing else loads it.  ``hashed_path``
+and ``compile_shared`` also build the host-side resampler of ``native/``
+(``footprints_tpu_torch/native``).
 """
 
 import ctypes
@@ -81,19 +85,24 @@ def compile_shared(compiler, flags, sources, out, verbose=False):
     return out
 
 
+PROBE_SOURCES = SOURCES[1:]  # the backward's two kernels
+PROBE_FLAGS = NVCC_FLAGS + ("-DFOOTPRINTS_PROBE",)
+
+
 def library_path():
     return hashed_path(BUILD_DIR, "footprints_kernels", NVCC_FLAGS, SOURCES + HEADERS)
 
 
-def build(verbose=False):
-    """Compile the sources unless the library for their hash exists: one
-    ``nvcc -c`` per source, all started together, then one link.  Returns
-    the library's path.  ``verbose`` adds ``-Xptxas -v`` (registers and
-    spills per instantiation) and prints the compilers' output."""
-    out = library_path()
+def probe_library_path():
+    return hashed_path(BUILD_DIR, "footprints_probe", PROBE_FLAGS, PROBE_SOURCES + HEADERS)
+
+
+def _build(out, sources, flags, verbose):
+    """Compile ``sources`` with ``flags`` into ``out`` unless it exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     if out.exists():
         return out
-    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    flags = flags + (("-Xptxas", "-v") if verbose else ())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         def compile_one(src):
@@ -105,32 +114,80 @@ def build(verbose=False):
                                    f"{proc.stdout}{proc.stderr}")
             return obj, proc.stdout + proc.stderr
 
-        with ThreadPoolExecutor(len(SOURCES)) as pool:
-            built = list(pool.map(compile_one, SOURCES))
+        with ThreadPoolExecutor(len(sources)) as pool:
+            built = list(pool.map(compile_one, sources))
         if verbose:
             print("".join(text for _, text in built))
         return compile_shared(nvcc_path, NVCC_FLAGS + ("-shared",),
                               [obj for obj, _ in built], out, verbose)
 
 
-@functools.cache
-def load_library():
-    """Build if needed, load, and declare every exported function's types."""
-    lib = ctypes.CDLL(str(build()))
+def build(verbose=False):
+    """Compile the sources unless the library for their hash exists: one
+    ``nvcc -c`` per source, all started together, then one link.  Returns
+    the library's path.  ``verbose`` adds ``-Xptxas -v`` (registers and
+    spills per instantiation) and prints the compilers' output."""
+    return _build(library_path(), SOURCES, NVCC_FLAGS, verbose)
+
+
+def build_probe(verbose=False):
+    """The clock64() probe's library (ops/probe.py): the backward's two
+    sources built again under ``-DFOOTPRINTS_PROBE`` (which instantiates
+    only the kernels of the probe's sites, 64 input channels) into a library
+    of their own, which no path but the probe loads."""
+    return _build(probe_library_path(), PROBE_SOURCES, PROBE_FLAGS, verbose)
+
+
+def _declare_backward(lib):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # dtype, x, w, w_stride, b, residual, y, N, Hi, Wi, Ci, Ho, Wo, Co,
-    # pad_mode, act, stream
-    lib.fused_conv3x3_launch.argtypes = (i, p, p, i, p, p, p, i, i, i, i, i,
-                                         i, i, i, i, p)
-    lib.fused_conv3x3_launch.restype = i
-    # dtype, gz, w, w_stride, gx, N, H, W, Ci, Ho, Wo, Co, pad_mode, stream
-    lib.fused_conv3x3_dgrad_launch.argtypes = (i, p, p, i, p, i, i, i, i, i, i, i, i, p)
+    # dtype, Ci, Co, pad_mode -> bytes of packed weights
+    lib.fused_conv3x3_dgrad_scratch.argtypes = (i, i, i, i)
+    lib.fused_conv3x3_dgrad_scratch.restype = ll
+    # dtype, w, w_stride, Ci, Co, pad_mode, packed, stream
+    lib.fused_conv3x3_dgrad_pack.argtypes = (i, p, i, i, i, i, p, p)
+    lib.fused_conv3x3_dgrad_pack.restype = i
+    # dtype, gz, w, w_stride, packed, packed bytes, gx, N, H, W, Ci, Ho, Wo,
+    # Co, pad_mode, stream
+    lib.fused_conv3x3_dgrad_launch.argtypes = (i, p, p, i, p, ll, p, i, i, i, i, i, i, i, i, p)
     lib.fused_conv3x3_dgrad_launch.restype = i
-    # N, H, W, Ci, Co, pad_mode -> f32 scratch elements
-    lib.fused_conv3x3_wgrad_scratch.argtypes = (i, i, i, i, i, i)
+    # dtype, N, H, W, Ci, Co, pad_mode -> f32 scratch elements
+    lib.fused_conv3x3_wgrad_scratch.argtypes = (i, i, i, i, i, i, i)
     lib.fused_conv3x3_wgrad_scratch.restype = ll
     # dtype, gz, x, scratch, scratch elements, gw, N, H, W, Ci, Ho, Wo, Co,
     # pad_mode, stream
     lib.fused_conv3x3_wgrad_launch.argtypes = (i, p, p, p, ll, p, i, i, i, i, i, i, i, i, p)
     lib.fused_conv3x3_wgrad_launch.restype = i
+
+
+@functools.cache
+def load_library():
+    """Build if needed, load, and declare every exported function's types."""
+    lib = ctypes.CDLL(str(build()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # dtype, x, w, w_stride, b, residual, y, N, Hi, Wi, Ci, Ho, Wo, Co,
+    # pad_mode, act, stream
+    lib.fused_conv3x3_launch.argtypes = (i, p, p, i, p, p, p, i, i, i, i, i,
+                                         i, i, i, i, p)
+    lib.fused_conv3x3_launch.restype = i
+    _declare_backward(lib)
+    return lib
+
+
+@functools.cache
+def load_probe_library():
+    """Build the probe's library if needed and load it (its own symbols:
+    ctypes loads it RTLD_LOCAL beside the main library)."""
+    lib = ctypes.CDLL(str(build_probe()))
+    _declare_backward(lib)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # stamp buffer, its room in blocks
+    for name in ("fused_conv3x3_dgrad_probe_set", "fused_conv3x3_wgrad_probe_set"):
+        getattr(lib, name).argtypes = (p, ll)
+        getattr(lib, name).restype = i
+    # dtype, N, H, W, Ci, pad_mode -> the main kernel's blocks
+    lib.fused_conv3x3_dgrad_probe_blocks.argtypes = (i, i, i, i, i, i)
+    lib.fused_conv3x3_dgrad_probe_blocks.restype = ll
+    # dtype, N, H, W, Ci, Co, pad_mode -> the partial kernel's blocks
+    lib.fused_conv3x3_wgrad_probe_blocks.argtypes = (i, i, i, i, i, i, i)
+    lib.fused_conv3x3_wgrad_probe_blocks.restype = ll
     return lib

@@ -52,7 +52,11 @@ beside it and its own launch counters:
     the transposed conv, straight to x's layout; 'reflect' in the gather
     form with the pad's border folds, 'up2_reflect' in the phase form (the
     4 output phases' 2x2 transposed convs with ``up2_phase_weights``, then
-    the edge pad's adjoint), as ops/s2d.py:_edge_conv_phase_bwd does;
+    the edge pad's adjoint), as ops/s2d.py:_edge_conv_phase_bwd does.  A
+    call is two launches: the weights pre-packed into the kernel's
+    shared-memory image (``fused_conv3x3_dgrad_pack``, its plain version
+    ``fused_conv3x3_dgrad_pack_plain`` with the TF32 split
+    ``tf32_split_plain``), then the kernel;
   * ``fused_conv3x3_wgrad(gz, x)``: the gradient on w, the reduction over
     N H W split into fixed partial sums (no atomics: the same bits every
     run); 'up2_reflect' in the phase form, folded back to 3x3 by
@@ -221,6 +225,62 @@ def fused_conv3x3_wgrad_plain(gz, x, *, pad_mode):
     phases = torch.stack([torch.stack([taps(g[:, a::2, b::2], 2, a, b) for b in range(2)])
                           for a in range(2)])
     return up2_phase_weights_adjoint(phases).to(x.dtype)
+
+
+def tf32_round_plain(t):
+    """f32 -> the TF32 value of ``cvt.rna.tf32.f32`` (round to nearest, ties
+    away from zero, 10 mantissa bits) with its 13 low bits cleared, as the
+    backward kernels store it: emulated on the f32 bits."""
+    bits = t.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
+
+
+def tf32_split_plain(t):
+    """(hi, lo) of the kernels' 3xTF32 split: hi = tf32(t), lo = tf32(t - hi);
+    hi + lo is t within 2^-21 relative."""
+    hi = tf32_round_plain(t)
+    return hi, tf32_round_plain(t.float() - hi)
+
+
+def dgrad_pack_geometry(dtype, pad_mode, ci):
+    """(N, channels of Co per stage, taps per cotangent plane, planes) of the
+    dgrad kernel's stages (csrc/fused_conv3x3_dgrad.cu: Dg): N = 32 input
+    channels when Ci <= 32, else 64; a stage is one plane's taps times one
+    chunk of output channels: one k-step (8 in f32, 16 in bf16), two in f32
+    at N = 64."""
+    taps, planes = (9, 1) if pad_mode == "reflect" else (4, 4)
+    n_tile = 32 if ci <= 32 else 64
+    chunk = 16 if dtype != torch.float32 or n_tile == 64 else 8
+    return n_tile, chunk, taps, planes
+
+
+def fused_conv3x3_dgrad_pack_plain(w, *, pad_mode):
+    """Plain PyTorch version of the dgrad kernel's weight pre-pack: OIHW
+    ``[Co,Ci,3,3]`` (f32 or bf16) -> the bytes of every stage's B tiles in
+    wgmma's shared-memory image, as the pre-pack kernel writes them.  The
+    taps (9, or at 'up2_reflect' the 16 of ``up2_phase_weights``, tap
+    ``((a*2 + b)*2 + ty)*2 + tx``) in f32, split by ``tf32_split_plain`` into
+    hi and lo in f32 or rounded to bf16, zero past Ci and Co, laid out
+    ``[ci tile][plane][chunk][hi, lo][tap of the plane][n // 8][k // e][n % 8][e]``
+    with n the input channel in its tile, k the output channel in its chunk
+    and e the elements of 16 bytes: 8 x 16-byte core matrices, K-major."""
+    co, ci = w.shape[:2]
+    n_tile, chunk, taps, planes = dgrad_pack_geometry(w.dtype, pad_mode, ci)
+    e = 4 if w.dtype == torch.float32 else 8
+    n_ci, n_chunks = -(-ci // n_tile), -(-co // chunk)
+    wf = w.float()
+    if pad_mode == "reflect":
+        k = wf.reshape(co, ci, 9)
+    else:
+        k = up2_phase_weights(wf).permute(2, 3, 0, 1, 4, 5).reshape(co, ci, 16)
+    k = F.pad(k, (0, 0, 0, n_ci * n_tile - ci, 0, n_chunks * chunk - co))
+    halves = tf32_split_plain(k) if w.dtype == torch.float32 else (k.to(torch.bfloat16),)
+    t = torch.stack(halves).reshape(len(halves), n_chunks, chunk // e, e, n_ci, n_tile // 8, 8,
+                                    planes, taps)
+    # [hl, chunk, kb, e, ci tile, nb, nr, plane, tap] -> the kernel's order
+    t = t.permute(4, 7, 1, 0, 8, 5, 2, 6, 3).contiguous()
+    return t.view(torch.uint8).reshape(-1)
 
 
 def _check(x, w, b, residual, pad_mode, act):
@@ -408,44 +468,86 @@ def _wgrad_plain(gz, x, pad_mode):
     return fused_conv3x3_wgrad_plain(gz, x, pad_mode=pad_mode)
 
 
-def _launch_dgrad(gz, w, pad_mode):
-    """One launch of the dgrad kernel, or a raise: gx NHWC in gz's dtype."""
+def run_dgrad(lib, gz, w, pad_mode):
+    """The dgrad kernel's two launches (the weight pre-pack into scratch,
+    then the main kernel) through ``lib``'s C interface, or a raise: gx NHWC
+    in gz's dtype.  Counts nothing."""
     n, h, w_, ci, ho, wo, co = _check_grad(gz, w, pad_mode, "fused_conv3x3_dgrad")
-    from .build import load_library
-
-    lib = load_library()
+    code, mode = _DTYPE_CODES[gz.dtype], PAD_MODES.index(pad_mode)
     gx = torch.empty((n, h, w_, ci), dtype=gz.dtype, device=gz.device)
+    packed = torch.empty(max(lib.fused_conv3x3_dgrad_scratch(code, ci, co, mode), 16),
+                         dtype=torch.uint8, device=gz.device)
     with torch.cuda.device(gz.device):
         stream = torch.cuda.current_stream(gz.device).cuda_stream
         err = lib.fused_conv3x3_dgrad_launch(
-            _DTYPE_CODES[gz.dtype], gz.data_ptr(), w.data_ptr(), w.stride(0), gx.data_ptr(),
-            n, h, w_, ci, ho, wo, co, PAD_MODES.index(pad_mode), ctypes.c_void_p(stream))
+            code, gz.data_ptr(), w.data_ptr(), w.stride(0), packed.data_ptr(), packed.numel(),
+            gx.data_ptr(), n, h, w_, ci, ho, wo, co, mode, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused_conv3x3_dgrad launch failed: CUDA error {err}")
+    return gx
+
+
+def _launch_dgrad(gz, w, pad_mode):
+    """One call of the dgrad kernel (its pre-pack, then the kernel), or a
+    raise; counted once."""
+    from .build import load_library
+
+    gx = run_dgrad(load_library(), gz, w, pad_mode)
     fused_conv3x3_dgrad.launches += 1
     fused_conv3x3_dgrad.bf16_launches += gz.dtype == torch.bfloat16
     return gx
 
 
-def _launch_wgrad(gz, x, pad_mode):
-    """One launch of the wgrad kernel (its partial sums, then their fixed-order
-    sum), or a raise: gw OIHW [Co,Ci,3,3], contiguous, in x's dtype."""
-    n, h, w_, ci, ho, wo, co = _check_grad(gz, x, pad_mode, "fused_conv3x3_wgrad")
+def fused_conv3x3_dgrad_pack(w, *, pad_mode):
+    """The dgrad kernel's weight pre-pack alone, on the card (the first of
+    its two launches): the bytes ``fused_conv3x3_dgrad_pack_plain`` gives.
+    Raises off the card.  Counts nothing."""
+    if (not w.is_cuda or w.dtype not in _DTYPE_CODES or w.dim() != 4
+            or w.stride()[1:] != (9, 3, 1)):
+        raise ValueError(f"fused_conv3x3_dgrad_pack takes an OIHW f32 or bf16 CUDA tensor "
+                         f"(an input-channel slice view allowed), got {w.dtype} on {w.device} "
+                         f"strides {w.stride()}")
     from .build import load_library
 
     lib = load_library()
-    mode = PAD_MODES.index(pad_mode)
+    co, ci = w.shape[:2]
+    code, mode = _DTYPE_CODES[w.dtype], PAD_MODES.index(pad_mode)
+    packed = torch.empty(lib.fused_conv3x3_dgrad_scratch(code, ci, co, mode), dtype=torch.uint8,
+                         device=w.device)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = lib.fused_conv3x3_dgrad_pack(code, w.data_ptr(), w.stride(0), ci, co, mode,
+                                           packed.data_ptr(), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"fused_conv3x3_dgrad_pack launch failed: CUDA error {err}")
+    return packed
+
+
+def run_wgrad(lib, gz, x, pad_mode):
+    """The wgrad kernel's two launches (its partial sums, then their
+    fixed-order sum) through ``lib``'s C interface, or a raise: gw OIHW
+    [Co,Ci,3,3], contiguous, in x's dtype.  Counts nothing."""
+    n, h, w_, ci, ho, wo, co = _check_grad(gz, x, pad_mode, "fused_conv3x3_wgrad")
+    code, mode = _DTYPE_CODES[x.dtype], PAD_MODES.index(pad_mode)
     gw = torch.empty((co, ci, 3, 3), dtype=x.dtype, device=x.device)
-    floats = lib.fused_conv3x3_wgrad_scratch(n, h, w_, ci, co, mode)
+    floats = lib.fused_conv3x3_wgrad_scratch(code, n, h, w_, ci, co, mode)
     scratch = torch.empty(max(floats, 1), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_conv3x3_wgrad_launch(
-            _DTYPE_CODES[x.dtype], gz.data_ptr(), x.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), gw.data_ptr(), n, h, w_, ci, ho, wo, co, mode,
-            ctypes.c_void_p(stream))
+            code, gz.data_ptr(), x.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            gw.data_ptr(), n, h, w_, ci, ho, wo, co, mode, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused_conv3x3_wgrad launch failed: CUDA error {err}")
+    return gw
+
+
+def _launch_wgrad(gz, x, pad_mode):
+    """One call of the wgrad kernel (its partial sums, then their
+    fixed-order sum), or a raise; counted once."""
+    from .build import load_library
+
+    gw = run_wgrad(load_library(), gz, x, pad_mode)
     fused_conv3x3_wgrad.launches += 1
     fused_conv3x3_wgrad.bf16_launches += x.dtype == torch.bfloat16
     return gw

@@ -453,14 +453,14 @@ def test_bf16_fused_grads_match_f32_plain_autograd(cuda_device, kind, hw, act):
             assert (a - e).norm() < 2e-2 * e.norm()
 
 
-def _bwd_case(device, pad_mode, hw, ci, co, dtype, seed):
-    """Seeded x [2,H,W,Ci], w [Co,Ci,3,3] and a pre-activation cotangent gz
+def _bwd_case(device, pad_mode, hw, ci, co, dtype, seed, n=2):
+    """Seeded x [n,H,W,Ci], w [Co,Ci,3,3] and a pre-activation cotangent gz
     of the site's output shape, on `device` in `dtype`."""
     g = torch.Generator().manual_seed(seed)
     ho, wo = hw if pad_mode == "reflect" else (2 * hw[0], 2 * hw[1])
-    x = torch.randn(2, *hw, ci, generator=g)
+    x = torch.randn(n, *hw, ci, generator=g)
     w = torch.randn(co, ci, 3, 3, generator=g) * 0.1
-    gz = torch.randn(2, ho, wo, co, generator=g)
+    gz = torch.randn(n, ho, wo, co, generator=g)
     return [t.to(device=device, dtype=dtype) for t in (x, w, gz)]
 
 
@@ -491,17 +491,22 @@ def _bwd_close(got, ref, leaf, dtype):
 @pytest.mark.parametrize("pad_mode,hw", [("reflect", (13, 37)), ("reflect", (2, 2)),
                                          ("reflect", (3, 2)), ("reflect", (2, 19)),
                                          ("up2_reflect", (7, 19)), ("up2_reflect", (1, 1)),
-                                         ("up2_reflect", (2, 1))])
+                                         ("up2_reflect", (2, 1)), ("reflect", (33, 65)),
+                                         ("up2_reflect", (17, 33))])
 @pytest.mark.parametrize("ci,co", [(64, 32), (32, 32), (64, 64), (20, 6), (3, 64), (64, 70),
-                                   (5, 8)])
+                                   (5, 8), (40, 24)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernels_match_plain(cuda_device, pad_mode, hw, ci, co, dtype):
     """fused_conv3x3_dgrad and fused_conv3x3_wgrad on the card against their
     plain versions in f64 on the same (bf16-rounded) tensors, at ragged and
     tiny shapes (both reflect folds on one row at H = 2 or 3, all 16 phase
-    taps clamped onto one pixel at 1x1), Ci = 32 (tail conv2), channel
-    counts that are not multiples of the tiles or of 4 (plain staging), and
-    each kernel launched once per call, on its dtype's route."""
+    taps clamped onto one pixel at 1x1), shapes one past the dgrad's 16 x 16
+    tiles and wgrad's 32-column tiles (and its static schedule's last,
+    partial run of tiles), Ci = 32 (tail conv2), channel counts that are not
+    multiples of the tiles or of 4 (plain staging), Co = 24 (whole 16-byte
+    rows, so the cotangent comes in by TMA, with the last chunk's channels
+    past Co zero-filled by the box), and each kernel launched once per call,
+    on its dtype's route."""
     x, w, gz = _bwd_case(cuda_device, pad_mode, hw, ci, co, dtype, seed=ci + co + hw[0])
     before = _bwd_launches()
     gx = fc.fused_conv3x3_dgrad(gz, w, pad_mode=pad_mode)
@@ -556,6 +561,77 @@ def test_backward_kernels_are_deterministic(cuda_device, dtype, pad_mode, hw, ci
               fc.fused_conv3x3_wgrad(gz, x, pad_mode=pad_mode))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode,hw,ci,co", [("up2_reflect", (96, 320), 64, 32),
+                                               ("reflect", (192, 640), 32, 32)])
+def test_backward_kernels_are_deterministic_at_batch_12(cuda_device, dtype, pad_mode, hw, ci,
+                                                        co):
+    """The same bits twice at the decoder tail's batch-12 shapes (tail.conv1,
+    tail.conv2), where wgrad's fixed schedule sums runs of 70-180 tiles a
+    block."""
+    x, w, gz = _bwd_case(cuda_device, pad_mode, hw, ci, co, dtype, seed=32, n=12)
+    first = (fc.fused_conv3x3_dgrad(gz, w, pad_mode=pad_mode),
+             fc.fused_conv3x3_wgrad(gz, x, pad_mode=pad_mode))
+    second = (fc.fused_conv3x3_dgrad(gz, w, pad_mode=pad_mode),
+              fc.fused_conv3x3_wgrad(gz, x, pad_mode=pad_mode))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# the Matterport dump's 512x640 decoder sites (chip_smoke.py:sites at
+# (512, 640)): (name, pad_mode, x NHWC at batch 4, Co)
+MATTERPORT_SITES = [("block4.post.conv1.up_half", "up2_reflect", (4, 128, 160, 64), 64),
+                    ("block4.post.conv1.skip_half", "reflect", (4, 256, 320, 64), 64),
+                    ("block4.post.conv2", "reflect", (4, 256, 320, 64), 64),
+                    ("tail.conv1", "up2_reflect", (4, 256, 320, 64), 32),
+                    ("tail.conv2", "reflect", (4, 512, 640, 32), 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", MATTERPORT_SITES, ids=[s[0] for s in MATTERPORT_SITES])
+def test_backward_kernels_at_the_512x640_sites(cuda_device, dtype, site):
+    """Both kernels at the Matterport sites, batch 4, against their plain
+    versions in f64.  gw's entries sum 327680 to 1310720 products: the f32
+    bars are chip_smoke.py's site_backward's for such sums (1e-3 max|ref| +
+    1e-3|ref|, ||d||/||ref|| < 1e-4), gx's and the bf16 bars as
+    _bwd_close's."""
+    _, pad_mode, shape, co = site
+    g = torch.Generator().manual_seed(sum(shape) + co)
+    n, h, w_, ci = shape
+    ho, wo = (h, w_) if pad_mode == "reflect" else (2 * h, 2 * w_)
+    x = torch.randn(shape, generator=g).to(cuda_device, dtype)
+    w = (torch.randn(co, ci, 3, 3, generator=g) / (3 * ci ** 0.5)).to(cuda_device, dtype)
+    gz = torch.randn(n, ho, wo, co, generator=g).to(cuda_device, dtype)
+    gx = fc.fused_conv3x3_dgrad(gz, w, pad_mode=pad_mode)
+    gw = fc.fused_conv3x3_wgrad(gz, x, pad_mode=pad_mode)
+    _bwd_close(gx, fc.fused_conv3x3_dgrad_plain(gz.double(), w.double(), pad_mode=pad_mode),
+               "x", dtype)
+    ref = fc.fused_conv3x3_wgrad_plain(gz.double(), x.double(), pad_mode=pad_mode)
+    if dtype == torch.bfloat16:
+        _bwd_close(gw, ref, "w", dtype)
+    else:
+        d = gw.double() - ref
+        assert bool((d.abs() <= 1e-3 * ref.abs().max() + 1e-3 * ref.abs()).all())
+        assert d.norm() < 1e-4 * ref.norm()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode", ["reflect", "up2_reflect"])
+@pytest.mark.parametrize("ci_lo,ci_hi,co", [(0, 3, 5), (5, 38, 17), (64, 128, 64), (0, 64, 70)])
+def test_dgrad_pack_kernel_matches_plain_bitwise(cuda_device, dtype, pad_mode, ci_lo, ci_hi,
+                                                 co):
+    """The dgrad kernel's weight pre-pack (transpose, phase fold, TF32 hi/lo
+    split, wgmma's shared-memory image) equals fused_conv3x3_dgrad_pack_plain
+    byte for byte, from an input-channel slice view too; it counts no
+    launch."""
+    g = torch.Generator().manual_seed(ci_hi + co)
+    w = (torch.randn(co, 128, 3, 3, generator=g) * 0.1).to(cuda_device, dtype)[:, ci_lo:ci_hi]
+    before = _bwd_launches()
+    got = fc.fused_conv3x3_dgrad_pack(w, pad_mode=pad_mode)
+    assert _bwd_launches() == before
+    assert torch.equal(got.cpu(), fc.fused_conv3x3_dgrad_pack_plain(w.cpu(), pad_mode=pad_mode))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -259,3 +259,108 @@ def test_backward_ops_raise_on_what_the_kernels_do_not_take():
                                pad_mode="reflect")
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fc.fused_conv3x3_wgrad(gz.half(), torch.zeros(1, 5, 6, 2).half(), pad_mode="reflect")
+
+
+# the dgrad kernel's weight pre-pack: its plain version (the kernel's own is
+# held against it bit for bit on the card, tests/test_torch_cuda.py)
+
+def _unpack(packed, dtype, pad_mode, ci, co):
+    """fused_conv3x3_dgrad_pack_plain's bytes -> [hi, lo] (f32) or [bf16]
+    taps [Co, Ci, taps], undoing its documented layout."""
+    n_tile, chunk, taps, planes = fc.dgrad_pack_geometry(dtype, pad_mode, ci)
+    e = 4 if dtype == torch.float32 else 8
+    n_ci, n_chunks = -(-ci // n_tile), -(-co // chunk)
+    halves = 2 if dtype == torch.float32 else 1
+    t = packed.view(dtype).reshape(n_ci, planes, n_chunks, halves, taps, n_tile // 8,
+                                   chunk // e, 8, e)
+    # back to [hl, chunk, kb, e, ci tile, nb, nr, plane, tap]
+    t = t.permute(3, 2, 6, 8, 0, 5, 7, 1, 4).reshape(halves, n_chunks * chunk, n_ci * n_tile,
+                                                     planes * taps)
+    return t[:, :co, :ci]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("ci,co", [(8, 4), (33, 40), (64, 32)])
+def test_dgrad_pack_plain_folds_as_jax_phase_kernels(seed, ci, co):
+    """At 'up2_reflect' the pack's 16 taps are the JAX package's phase
+    kernels (footprints_tpu/ops/upconv.py:_phase_kernels, rows summed
+    first): hi + lo within 2^-21 relative of them in f32, and the bf16
+    pack equal to them rounded to bf16."""
+    from footprints_tpu.ops.upconv import _phase_kernels
+
+    rng = np.random.RandomState(60 + seed)
+    w_hwio = rng.randn(3, 3, ci, co).astype(np.float32)
+    kernels = _phase_kernels(jnp.asarray(w_hwio))
+    # [a][b] of [ty, tx, ci, co] -> [co, ci, ((a*2 + b)*2 + ty)*2 + tx]
+    ref = np.stack([np.asarray(kernels[a][b]) for a in range(2) for b in range(2)])
+    ref = torch.from_numpy(ref.reshape(4, 2, 2, ci, co).transpose(4, 3, 0, 1, 2)
+                           .reshape(co, ci, 16).copy())
+    w = _oihw(w_hwio)
+    hi, lo = _unpack(fc.fused_conv3x3_dgrad_pack_plain(w, pad_mode="up2_reflect"),
+                     torch.float32, "up2_reflect", ci, co)
+    err = (hi.double() + lo.double() - ref.double()).abs()
+    assert bool((err <= 2.0 ** -21 * ref.double().abs()).all())
+    (b16,) = _unpack(fc.fused_conv3x3_dgrad_pack_plain(w.to(torch.bfloat16),
+                                                       pad_mode="up2_reflect"),
+                     torch.bfloat16, "up2_reflect", ci, co)
+    ref16 = fc.up2_phase_weights(w.to(torch.bfloat16).float())
+    ref16 = ref16.permute(2, 3, 0, 1, 4, 5).reshape(co, ci, 16).to(torch.bfloat16)
+    assert torch.equal(b16, ref16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode", ["reflect", "up2_reflect"])
+@pytest.mark.parametrize("ci_lo,ci_hi,co", [(0, 3, 5), (5, 38, 17), (64, 128, 64), (0, 64, 70)])
+def test_dgrad_pack_plain_layout_holds_every_tap_once(dtype, pad_mode, ci_lo, ci_hi, co):
+    """Undoing the documented layout gives back the taps (the 9 of w, or
+    up2_phase_weights' 16), from an input-channel slice view too, and every
+    padded byte is zero: the pack is a permutation of the taps and zeros."""
+    rng = np.random.RandomState(ci_hi + co)
+    full = torch.from_numpy(rng.randn(co, 128, 3, 3).astype(np.float32)).to(dtype)
+    w = full[:, ci_lo:ci_hi]
+    ci = ci_hi - ci_lo
+    packed = fc.fused_conv3x3_dgrad_pack_plain(w, pad_mode=pad_mode)
+    got = _unpack(packed, dtype, pad_mode, ci, co)
+    wf = w.float()
+    taps = (wf.reshape(co, ci, 9) if pad_mode == "reflect" else
+            fc.up2_phase_weights(wf).permute(2, 3, 0, 1, 4, 5).reshape(co, ci, 16))
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[0].double() + got[1].double(), taps.double(),
+                                   atol=0, rtol=2.0 ** -21)
+    else:
+        assert torch.equal(got[0], taps.to(torch.bfloat16))
+    nonzero = int((packed.view(dtype) != 0).sum())
+    assert nonzero == int((got != 0).sum())
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e-3, 1.0, 7e4, 3e30])
+def test_tf32_split_plain(scale):
+    """The 3xTF32 split of the backward kernels, emulated on the f32 bits:
+    hi is exactly representable in TF32 (13 low bits zero) and the nearest
+    such value (ties away from zero), lo the same of the rest, and hi + lo
+    is the input within 2^-21 relative."""
+    rng = np.random.RandomState(int(np.log10(scale) + 40))
+    v = torch.from_numpy((rng.randn(4096) * scale).astype(np.float32))
+    hi, lo = fc.tf32_split_plain(v)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    step = hi.abs().double() * 2.0 ** -10  # a TF32 ulp is at least 2^-11 |hi|
+    assert bool(((hi.double() - v.double()).abs() <= step / 2 * 1.0001).all())
+    err = (hi.double() + lo.double() - v.double()).abs()
+    assert bool((err <= 2.0 ** -21 * v.double().abs()).all())
+    # ties go away from zero: 1 + 2^-11 lies halfway between TF32's 1 and 1 + 2^-10
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11)])
+    assert fc.tf32_round_plain(tie).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
+
+
+@pytest.mark.parametrize("intervals,most", [([], 0), ([(0, 10)], 1),
+                                            ([(0, 10), (5, 15), (12, 20)], 2),
+                                            ([(0, 10), (10, 20)], 1),
+                                            ([(0, 30), (1, 29), (2, 28), (40, 50)], 3)])
+def test_probe_counts_blocks_resident_at_once(intervals, most):
+    """The probe's blocks resident on an SM: the most of a block's (start,
+    end) intervals that hold one instant (one that ends as another starts
+    does not overlap it)."""
+    from footprints_tpu_torch.ops.probe import most_overlapping
+
+    assert most_overlapping(intervals) == most
