@@ -32,11 +32,16 @@ final result line:
               counted at the 4 taps per output its function needs):
               bound_ffma_ms at the f32 FMA peak, bound_tc_ms with 3 TF32
               products per MAC (bf16: 1 bf16 product) at the tensor-core
-              peak, each at least the site's bytes at the HBM rate; then the
-              serving forward's imgs/s at batch 16 and the single-image p50;
+              peak, each at least the site's bytes at the HBM rate, and
+              the share of that bound in the device time (graph); then the
+              serving forward's imgs/s at batch 16 and the single-image p50,
+              and the op's host cost per call (two device launches: the
+              weight pre-pack and the kernel);
   6. profile  torch.profiler device time by kernel over the batch-16
               forward, the idle share, and the full table in
-              smoke_out/profile_b16.json;
+              smoke_out/profile_b16.json; checks the forward's two device
+              kernels (the pre-pack and the main kernel) ran 10 times each
+              per forward;
   7. train    trains FootprintNetwork-34 at 192x640, batch 12, through
               footprints_tpu_torch.main on a synthetic KITTI tree of
               375x1242 frames (where PIL, OpenCV and PyYAML all import;
@@ -87,8 +92,8 @@ final result line:
               torch.backends.cudnn.benchmark on (restored after), and the
               shapes and batches on a cliff (smoke_out/cudnn_probe.json);
   8a. probe  the clock64() probe (footprints_tpu_torch/ops/probe.py, its
-              library built beside the main one during phase 2) of the dgrad
-              and wgrad kernels at batch 12 on tail.conv1 and
+              library built beside the main one during phase 2) of the
+              forward, dgrad and wgrad kernels at batch 12 on tail.conv1 and
               block4.post.conv2, f32 and bf16: one JSON line per kernel with
               the shares of a block's cycles spent waiting (on copies,
               mbarriers, barriers), staging (issuing copies, the f32
@@ -376,6 +381,8 @@ BWD_LAUNCHES = {k["name"]: 0 for k in BWD_KERNELS}
 # kernel, wgrad's partial sums and their fixed-order sum
 BWD_DEVICE_KERNELS = ("fused_conv3x3_dgrad_pack_kernel", "fused_conv3x3_dgrad_kernel",
                       "fused_conv3x3_wgrad_partial_kernel", "fused_conv3x3_wgrad_reduce_kernel")
+# the device kernels of one forward call: the weight pre-pack and the main kernel
+FWD_DEVICE_KERNELS = ("fused_conv3x3_pack_kernel", "fused_conv3x3_kernel")
 # the probe's sites (phase probe): an up site and a reflect site of 64 channels
 PROBE_SITES = ("tail.conv1", "block4.post.conv2")
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): f32 outside
@@ -385,7 +392,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 TF32_PRODUCTS_PER_MAC = 3  # the f32 route's 3xTF32 split
-ROUTES = {torch.float32: "mma_tf32x3", torch.bfloat16: "mma_bf16"}
+ROUTES = {torch.float32: "wgmma_tf32x3", torch.bfloat16: "wgmma_bf16"}
 LAUNCHES_PER_FORWARD = 10  # 5 sites x 2 decoders
 TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES = 12, 4, 1
 # the FootprintNetwork trainer's rate with its loader: 16 batches of 12 after
@@ -661,13 +668,13 @@ def backward_kernels(fail, tag, site, x, w, gz):
 
 
 def phase_probe(fail, probe_build):
-    """The clock64() probe (ops/probe.py) of the dgrad and wgrad kernels at
-    batch 12 on PROBE_SITES, f32 and bf16: per kernel, the shares of a
-    block's cycles spent waiting, staging, in the MMAs and in the epilogue,
-    and the blocks resident on an SM.  The probe's library was
+    """The clock64() probe (ops/probe.py) of the forward, dgrad and wgrad
+    kernels at batch 12 on PROBE_SITES, f32 and bf16: per kernel, the
+    shares of a block's cycles spent waiting, staging, in the MMAs and in
+    the epilogue, and the blocks resident on an SM.  The probe's library was
     built beside the main one (`probe_build`, a future); its launches do not
     count."""
-    from footprints_tpu_torch.ops.probe import probe_backward
+    from footprints_tpu_torch.ops.probe import probe_backward, probe_forward
 
     probe_build.result()
     out = []
@@ -680,6 +687,15 @@ def phase_probe(fail, probe_build):
             f = 1 if site[1] == "reflect" else 2
             gz = torch.randn(n, f * h, f * w_, site[3], device="cuda",
                              generator=torch.Generator("cuda").manual_seed(900 + si)).to(dtype)
+            _, _, b, r = site_inputs(site, dtype, seed=800 + si)
+            before = fused_conv3x3.launches
+            row = {"site": site[0], "dtype": str(dtype).replace("torch.", ""),
+                   "kernel": KERNEL["name"], "batch": TRAIN_BATCH,
+                   **probe_forward(x, w, b, r, site[1], site[6])}
+            emit("probe", **row)
+            out.append(row)
+            fail.check(fused_conv3x3.launches == before, "probe: the forward probe's launch "
+                       "moved the counter")
             before = bwd_counts()
             for kind, t in (("dgrad", w), ("wgrad", x)):
                 row = {"site": site[0], "dtype": str(dtype).replace("torch.", ""),
@@ -855,11 +871,13 @@ def phase_times(net):
              ms=t_kernel, graph_ms=t_graph, plain_ms=t_plain, library_ms=t_lib,
              bound_ffma_ms=bound_ffma, bound_tc_ms=bound_tc, bound_ms=t_bound,
              bound_by=bound_by, share_of_bound=t_bound / t_kernel,
+             share_of_bound_graph=bound_tc / t_graph,
              tflops_done=site_flops(site) / (t_kernel * 1e-3) / 1e12,
              route_bf16=ROUTES[torch.bfloat16], ms_bf16=t_kernel_bf16,
              graph_ms_bf16=t_graph_bf16,
              library_ms_bf16=t_lib_bf16, bound_tc_bf16_ms=bound_tc_bf16,
-             share_of_bound_bf16=bound_tc_bf16 / t_kernel_bf16)
+             share_of_bound_bf16=bound_tc_bf16 / t_kernel_bf16,
+             share_of_bound_graph_bf16=bound_tc_bf16 / t_graph_bf16)
 
     stats = {}
     for batch in (16, 1):
@@ -886,11 +904,13 @@ def phase_times(net):
     emit("times", kernel=KERNEL["name"], per_forward_at_batch=4,
          share_of_bound=totals["bound_ms"] / totals["ms"],
          share_of_bound_bf16=totals["bound_tc_bf16_ms"] / totals["ms_bf16"],
+         share_of_bound_graph=totals["bound_tc_ms"] / totals["graph_ms"],
+         share_of_bound_graph_bf16=totals["bound_tc_bf16_ms"] / totals["graph_ms_bf16"],
          **totals)
     emit("times", forward="FootprintNetwork-34 serving forward ('1/1' head), f32",
          **stats)
     emit("times", kernel=KERNEL["name"], host_us_per_call=wrapper_host_costs(),
-         input=[1, 8, 8, 16], calls=2000)
+         device_launches_per_call=len(FWD_DEVICE_KERNELS), input=[1, 8, 8, 16], calls=2000)
     return totals
 
 
@@ -989,12 +1009,17 @@ def profile_forward(forward, json_name):
     return summary, rows
 
 
-def phase_profile(net):
+def phase_profile(fail, net):
     """Device time by kernel over 5 serving forwards at batch 16, and the
     share of the wall time in which no kernel ran."""
     x = torch.rand(16, HEIGHT, WIDTH, 3, device="cuda")
     summary, rows = profile_forward(lambda: net(x, scales=("1/1",)), "profile_b16.json")
-    emit("profile", **summary, top=rows[:10])
+    names = [r["name"] for r in rows]
+    per_forward = {k: sum(r["count"] for r in rows if k in r["name"]) for k in FWD_DEVICE_KERNELS}
+    fail.check(all(n == LAUNCHES_PER_FORWARD for n in per_forward.values()),
+               f"profile: the forward's device kernels per forward {per_forward}, expected "
+               f"{LAUNCHES_PER_FORWARD} of each ({len(names)} kernels profiled)")
+    emit("profile", **summary, forward_device_kernels_per_forward=per_forward, top=rows[:10])
 
 
 # --- training -----------------------------------------------------------------
@@ -4580,7 +4605,7 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         launches, net = timed("main", phase_main, fail, workdir)
     totals = timed("times", phase_times, net)
-    timed("profile", phase_profile, net)
+    timed("profile", phase_profile, fail, net)
     del net
     with tempfile.TemporaryDirectory() as workdir:
         train_launches, host, epoch, run = timed("train", phase_train, fail, workdir)

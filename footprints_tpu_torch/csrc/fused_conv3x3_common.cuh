@@ -1,11 +1,11 @@
 // Helpers shared by the fused conv's forward (fused_conv3x3.cu) and backward
 // (fused_conv3x3_dgrad.cu, fused_conv3x3_wgrad.cu) kernels for Hopper
-// (sm_90a): tile constants, the tensor-core instructions (mma.sync tf32 and
-// bf16, ldmatrix, cp.async), the 3xTF32 split, the reflect and edge index
-// maps, the phase fold of the weights at up2_reflect, and, for the backward,
-// wgmma with its shared-memory descriptors, mbarriers, bulk async copies, TMA
-// tensor maps with the swizzled image their loads write, and the clock64()
-// probe's stamps (compiled in only under FOOTPRINTS_PROBE).
+// (sm_90a): tile constants, the tensor-core instructions (wgmma with its
+// shared-memory descriptors; mma.sync tf32 and bf16 and cp.async, which
+// wgrad keeps; ldmatrix), the 3xTF32 split, the reflect and edge index maps,
+// the phase fold of the weights at up2_reflect, mbarriers, bulk async
+// copies, TMA tensor maps with the swizzled image their loads write, and the
+// clock64() probe's stamps (compiled in only under FOOTPRINTS_PROBE).
 
 #pragma once
 
@@ -20,10 +20,7 @@ namespace {
 
 constexpr int TW = 16;            // tile columns: the M of one mma fragment
 constexpr int HC = TW + 2;        // halo tile columns
-constexpr int COT = 32;           // N channels per block (4 n8 fragments)
-constexpr int NT = COT / 8;       // n8 fragments per warp
-constexpr int KW = 8;             // 32-bit words of channels per chunk: 8 f32 or 16 bf16
-constexpr int PS = KW + 4;        // smem words per pixel (and per weight row): bank-conflict-free
+constexpr int COT = 32;           // wgrad: output channels per block
 constexpr int WARPS = 4;          // warps per block
 constexpr int THREADS = 32 * WARPS;
 enum PadMode { kReflect = 0, kUp2Reflect = 1 };
@@ -33,9 +30,6 @@ enum Act { kNone = 0, kElu = 1 };
 template <int MODE>
 __host__ __device__ constexpr int taps_of() { return MODE == kReflect ? 9 : 16; }
 
-template <typename T>
-__host__ __device__ constexpr int elems_per_word() { return 4 / static_cast<int>(sizeof(T)); }
-
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -43,11 +37,6 @@ __device__ __forceinline__ uint32_t tf32(float v) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
   return r;
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(v);
-  lo = tf32(v - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -93,17 +82,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// 4 consecutive channels: load and store, vectorised (aligned) or masked.
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
+// 4 consecutive channels, stored vectorised (aligned).
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -168,7 +147,7 @@ __device__ __forceinline__ void fold_taps(const float (&raw)[9], float (&out)[ta
   }
 }
 
-// ---- the backward's Hopper instructions ----
+// ---- Hopper's instructions: wgmma, mbarriers, bulk copies ----
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -7,10 +7,9 @@ name carries their hash).  Each source compiles in its own ``nvcc``, all at
 once, then one link; they include no PyTorch header, so a build takes
 seconds.
 Pointers and the stream cross as ``c_void_p``; each launch function returns
-``cudaGetLastError()``.  ``build_probe`` builds the backward's two sources
-again under ``-DFOOTPRINTS_PROBE`` into a library of their own for the
-clock64() probe (``ops/probe.py``), with only the kernels the probe's sites
-run; nothing else loads it.  ``hashed_path``
+``cudaGetLastError()``.  ``build_probe`` builds the three sources again
+under ``-DFOOTPRINTS_PROBE`` into a library of their own for the clock64()
+probe (``ops/probe.py``); nothing else loads it.  ``hashed_path``
 and ``compile_shared`` also build the host-side resampler of ``native/``
 (``footprints_tpu_torch/native``).
 """
@@ -85,7 +84,7 @@ def compile_shared(compiler, flags, sources, out, verbose=False):
     return out
 
 
-PROBE_SOURCES = SOURCES[1:]  # the backward's two kernels
+PROBE_SOURCES = SOURCES  # the forward and the backward's two kernels
 PROBE_FLAGS = NVCC_FLAGS + ("-DFOOTPRINTS_PROBE",)
 
 
@@ -131,14 +130,33 @@ def build(verbose=False):
 
 
 def build_probe(verbose=False):
-    """The clock64() probe's library (ops/probe.py): the backward's two
-    sources built again under ``-DFOOTPRINTS_PROBE`` (which instantiates
-    only the kernels of the probe's sites, 64 input channels) into a library
-    of their own, which no path but the probe loads."""
+    """The clock64() probe's library (ops/probe.py): the three sources
+    built again under ``-DFOOTPRINTS_PROBE`` (under which the backward's two
+    instantiate only the kernels of the probe's sites, 64 input channels;
+    the forward all of its own) into a library of their own, which no path
+    but the probe loads."""
     return _build(probe_library_path(), PROBE_SOURCES, PROBE_FLAGS, verbose)
 
 
-def _declare_backward(lib):
+def declare_forward(lib):
+    """Declare the types of the forward's exported functions in ``lib``."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # dtype, Ci, Co, pad_mode -> bytes of packed weights
+    lib.fused_conv3x3_scratch.argtypes = (i, i, i, i)
+    lib.fused_conv3x3_scratch.restype = ll
+    # dtype, w, w_stride, Ci, Co, pad_mode, packed, stream
+    lib.fused_conv3x3_pack.argtypes = (i, p, i, i, i, i, p, p)
+    lib.fused_conv3x3_pack.restype = i
+    # dtype, x, w, w_stride, b, residual, packed, packed bytes, y, N, Hi, Wi,
+    # Ci, Ho, Wo, Co, pad_mode, act, stream
+    lib.fused_conv3x3_launch.argtypes = (i, p, p, i, p, p, p, ll, p, i, i, i, i, i, i, i, i, i,
+                                         p)
+    lib.fused_conv3x3_launch.restype = i
+
+
+def _declare(lib):
+    """Declare the types of every exported launch function of ``lib``."""
+    declare_forward(lib)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # dtype, Ci, Co, pad_mode -> bytes of packed weights
     lib.fused_conv3x3_dgrad_scratch.argtypes = (i, i, i, i)
@@ -163,13 +181,7 @@ def _declare_backward(lib):
 def load_library():
     """Build if needed, load, and declare every exported function's types."""
     lib = ctypes.CDLL(str(build()))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # dtype, x, w, w_stride, b, residual, y, N, Hi, Wi, Ci, Ho, Wo, Co,
-    # pad_mode, act, stream
-    lib.fused_conv3x3_launch.argtypes = (i, p, p, i, p, p, p, i, i, i, i, i,
-                                         i, i, i, i, p)
-    lib.fused_conv3x3_launch.restype = i
-    _declare_backward(lib)
+    _declare(lib)
     return lib
 
 
@@ -178,12 +190,16 @@ def load_probe_library():
     """Build the probe's library if needed and load it (its own symbols:
     ctypes loads it RTLD_LOCAL beside the main library)."""
     lib = ctypes.CDLL(str(build_probe()))
-    _declare_backward(lib)
+    _declare(lib)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # stamp buffer, its room in blocks
-    for name in ("fused_conv3x3_dgrad_probe_set", "fused_conv3x3_wgrad_probe_set"):
+    for name in ("fused_conv3x3_probe_set", "fused_conv3x3_dgrad_probe_set",
+                 "fused_conv3x3_wgrad_probe_set"):
         getattr(lib, name).argtypes = (p, ll)
         getattr(lib, name).restype = i
+    # dtype, N, H, W, Ci, Co, pad_mode -> the forward's main kernel's blocks
+    lib.fused_conv3x3_probe_blocks.argtypes = (i, i, i, i, i, i, i)
+    lib.fused_conv3x3_probe_blocks.restype = ll
     # dtype, N, H, W, Ci, pad_mode -> the main kernel's blocks
     lib.fused_conv3x3_dgrad_probe_blocks.argtypes = (i, i, i, i, i, i)
     lib.fused_conv3x3_dgrad_probe_blocks.restype = ll

@@ -31,7 +31,10 @@ tensor cores: bf16 products for bf16, and for f32 the error-compensated
 true-f32 conv.  At ``'up2_reflect'`` it computes each of the 4 output
 phases as a 2x2 conv on the edge-padded low-res input with phase-summed
 weights; ``up2_phase_weights`` and ``up2_phase_conv_plain`` are the plain
-PyTorch spec of that identity (no path calls them).
+PyTorch spec of that identity (no path calls them).  A call is two
+launches, counted once: the weights pre-packed into the kernel's
+shared-memory image (``fused_conv3x3_pack``, its plain version
+``fused_conv3x3_pack_plain``), then the kernel.
 
 The kernel is a registered custom op, ``footprints::fused_conv3x3``
 (``fused_conv3x3_op``), so ``torch.export`` carries it into a serving
@@ -243,6 +246,50 @@ def tf32_split_plain(t):
     return hi, tf32_round_plain(t.float() - hi)
 
 
+def forward_pack_geometry(dtype, pad_mode, co):
+    """(N, input channels per stage, taps) of the forward kernel's stages
+    (csrc/fused_conv3x3.cu: Fw): N = 32 output channels when Co <= 32, else
+    64; a stage is one chunk of input channels: one k-step (8 in f32, 16 in
+    bf16), two in f32 at 'reflect' and N = 64; 9 taps, or at 'up2_reflect'
+    the 16 of ``up2_phase_weights``."""
+    n_tile = 32 if co <= 32 else 64
+    chunk = 16 if dtype != torch.float32 or (n_tile == 64 and pad_mode == "reflect") else 8
+    return n_tile, chunk, 9 if pad_mode == "reflect" else 16
+
+
+def _taps(w, pad_mode):
+    """OIHW ``[Co,Ci,3,3]`` -> the kernels' taps ``[Co,Ci,taps]`` in f32: the
+    9 of w, or at 'up2_reflect' the 16 of ``up2_phase_weights``, tap
+    ``((a*2 + b)*2 + ty)*2 + tx``."""
+    co, ci = w.shape[:2]
+    wf = w.float()
+    if pad_mode == "reflect":
+        return wf.reshape(co, ci, 9)
+    return up2_phase_weights(wf).permute(2, 3, 0, 1, 4, 5).reshape(co, ci, 16)
+
+
+def fused_conv3x3_pack_plain(w, *, pad_mode):
+    """Plain PyTorch version of the forward kernel's weight pre-pack: OIHW
+    ``[Co,Ci,3,3]`` (f32 or bf16) -> the bytes of every stage's B tiles in
+    wgmma's shared-memory image, as the pre-pack kernel writes them.  The
+    taps (``_taps``) in f32, split by ``tf32_split_plain`` into hi and lo in
+    f32 or rounded to bf16, zero past Ci and Co, laid out
+    ``[co tile][chunk][hi, lo][tap][n // 8][k // e][n % 8][e]`` with n the
+    output channel in its tile, k the input channel in its chunk and e the
+    elements of 16 bytes: 8 x 16-byte core matrices, K-major."""
+    co, ci = w.shape[:2]
+    n_tile, chunk, taps = forward_pack_geometry(w.dtype, pad_mode, co)
+    e = 4 if w.dtype == torch.float32 else 8
+    n_co, n_chunks = -(-co // n_tile), -(-ci // chunk)
+    k = F.pad(_taps(w, pad_mode), (0, 0, 0, n_chunks * chunk - ci, 0, n_co * n_tile - co))
+    halves = tf32_split_plain(k) if w.dtype == torch.float32 else (k.to(torch.bfloat16),)
+    t = torch.stack(halves).reshape(len(halves), n_co, n_tile // 8, 8, n_chunks, chunk // e, e,
+                                    taps)
+    # [hl, co tile, nb, nr, chunk, kb, e, tap] -> the kernel's order
+    t = t.permute(1, 4, 0, 7, 2, 5, 3, 6).contiguous()
+    return t.view(torch.uint8).reshape(-1)
+
+
 def dgrad_pack_geometry(dtype, pad_mode, ci):
     """(N, channels of Co per stage, taps per cotangent plane, planes) of the
     dgrad kernel's stages (csrc/fused_conv3x3_dgrad.cu: Dg): N = 32 input
@@ -269,12 +316,7 @@ def fused_conv3x3_dgrad_pack_plain(w, *, pad_mode):
     n_tile, chunk, taps, planes = dgrad_pack_geometry(w.dtype, pad_mode, ci)
     e = 4 if w.dtype == torch.float32 else 8
     n_ci, n_chunks = -(-ci // n_tile), -(-co // chunk)
-    wf = w.float()
-    if pad_mode == "reflect":
-        k = wf.reshape(co, ci, 9)
-    else:
-        k = up2_phase_weights(wf).permute(2, 3, 0, 1, 4, 5).reshape(co, ci, 16)
-    k = F.pad(k, (0, 0, 0, n_ci * n_tile - ci, 0, n_chunks * chunk - co))
+    k = F.pad(_taps(w, pad_mode), (0, 0, 0, n_ci * n_tile - ci, 0, n_chunks * chunk - co))
     halves = tf32_split_plain(k) if w.dtype == torch.float32 else (k.to(torch.bfloat16),)
     t = torch.stack(halves).reshape(len(halves), n_chunks, chunk // e, e, n_ci, n_tile // 8, 8,
                                     planes, taps)
@@ -402,23 +444,34 @@ def _plain(x, w, b, residual, pad_mode, act):
     return fused_conv3x3_plain(x, w, b, residual, pad_mode=pad_mode, act=act)
 
 
-def _launch(x, w, b, residual, pad_mode, act):
-    """The CUDA implementation: one launch of the kernel, or a raise."""
+def run_forward(lib, x, w, b, residual, pad_mode, act):
+    """The forward kernel's two launches (the weight pre-pack into scratch,
+    then the main kernel) through ``lib``'s C interface, or a raise: y NHWC
+    in x's dtype.  Counts nothing."""
     n, h, w_, ci, ho, wo, co = _check(x, w, b, residual, pad_mode, act)
-    from .build import load_library
-
-    lib = load_library()
+    code, mode = _DTYPE_CODES[x.dtype], PAD_MODES.index(pad_mode)
     y = torch.empty((n, ho, wo, co), dtype=x.dtype, device=x.device)
+    packed = torch.empty(max(lib.fused_conv3x3_scratch(code, ci, co, mode), 16),
+                         dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_conv3x3_launch(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), w.stride(0),
+            code, x.data_ptr(), w.data_ptr(), w.stride(0),
             None if b is None else b.data_ptr(),
-            None if residual is None else residual.data_ptr(), y.data_ptr(),
-            n, h, w_, ci, ho, wo, co, PAD_MODES.index(pad_mode),
+            None if residual is None else residual.data_ptr(), packed.data_ptr(),
+            packed.numel(), y.data_ptr(), n, h, w_, ci, ho, wo, co, mode,
             ACTS.index(act), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused_conv3x3 launch failed: CUDA error {err}")
+    return y
+
+
+def _launch(x, w, b, residual, pad_mode, act):
+    """The CUDA implementation: one call of the kernel, or a raise; counted
+    once."""
+    from .build import load_library
+
+    y = run_forward(load_library(), x, w, b, residual, pad_mode, act)
     fused_conv3x3.launches += 1
     fused_conv3x3.bf16_launches += x.dtype == torch.bfloat16
     return y
@@ -498,29 +551,43 @@ def _launch_dgrad(gz, w, pad_mode):
     return gx
 
 
-def fused_conv3x3_dgrad_pack(w, *, pad_mode):
-    """The dgrad kernel's weight pre-pack alone, on the card (the first of
-    its two launches): the bytes ``fused_conv3x3_dgrad_pack_plain`` gives.
-    Raises off the card.  Counts nothing."""
+def _pack_on_card(kind, w, pad_mode):
+    """A weight pre-pack alone, on the card: ``kind`` '' (the forward's) or
+    '_dgrad'.  Raises off the card.  Counts nothing."""
+    name = f"fused_conv3x3{kind}_pack"
     if (not w.is_cuda or w.dtype not in _DTYPE_CODES or w.dim() != 4
             or w.stride()[1:] != (9, 3, 1)):
-        raise ValueError(f"fused_conv3x3_dgrad_pack takes an OIHW f32 or bf16 CUDA tensor "
-                         f"(an input-channel slice view allowed), got {w.dtype} on {w.device} "
-                         f"strides {w.stride()}")
+        raise ValueError(f"{name} takes an OIHW f32 or bf16 CUDA tensor (an input-channel "
+                         f"slice view allowed), got {w.dtype} on {w.device} strides "
+                         f"{w.stride()}")
     from .build import load_library
 
     lib = load_library()
     co, ci = w.shape[:2]
     code, mode = _DTYPE_CODES[w.dtype], PAD_MODES.index(pad_mode)
-    packed = torch.empty(lib.fused_conv3x3_dgrad_scratch(code, ci, co, mode), dtype=torch.uint8,
-                         device=w.device)
+    packed = torch.empty(getattr(lib, f"fused_conv3x3{kind}_scratch")(code, ci, co, mode),
+                         dtype=torch.uint8, device=w.device)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = lib.fused_conv3x3_dgrad_pack(code, w.data_ptr(), w.stride(0), ci, co, mode,
-                                           packed.data_ptr(), ctypes.c_void_p(stream))
+        err = getattr(lib, name)(code, w.data_ptr(), w.stride(0), ci, co, mode,
+                                 packed.data_ptr(), ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"fused_conv3x3_dgrad_pack launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return packed
+
+
+def fused_conv3x3_pack(w, *, pad_mode):
+    """The forward kernel's weight pre-pack alone, on the card (the first of
+    its two launches): the bytes ``fused_conv3x3_pack_plain`` gives.  Raises
+    off the card.  Counts nothing."""
+    return _pack_on_card("", w, pad_mode)
+
+
+def fused_conv3x3_dgrad_pack(w, *, pad_mode):
+    """The dgrad kernel's weight pre-pack alone, on the card (the first of
+    its two launches): the bytes ``fused_conv3x3_dgrad_pack_plain`` gives.
+    Raises off the card.  Counts nothing."""
+    return _pack_on_card("_dgrad", w, pad_mode)
 
 
 def run_wgrad(lib, gz, x, pad_mode):

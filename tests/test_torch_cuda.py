@@ -152,6 +152,126 @@ def test_kernel_up2_matches_phase_plain(cuda_device, hw, ci, co):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
+# the forward's border cases: H and W of 2 and 3, H past a multiple of the
+# tile's rows (16 at reflect; 4 low-res rows at up2_reflect, 8 in bf16 at
+# Co <= 32) by 1 or 2, W past a multiple of 16 by 1 or 2, where the reflect
+# and edge pads are built in shared memory from the halo box
+BORDER_HW = {"reflect": [(2, 2), (3, 3), (2, 3), (17, 18), (18, 17), (33, 34)],
+             "up2_reflect": [(2, 2), (3, 3), (1, 2), (5, 17), (6, 18), (9, 34), (10, 33)]}
+# (Ci, Co, x misaligned by one element): the TMA halo at N = 64 and N = 32;
+# Ci = 6 (24 bytes in f32, 12 in bf16: not a multiple of 16) the plain-load
+# halo with Co = 70 (two output-channel tiles, a ragged one); a misaligned x
+BORDER_CASES = [(64, 64, False), (32, 32, False), (6, 70, False), (16, 40, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BORDER_CASES, ids=[f"ci{c[0]}-co{c[1]}-mis{int(c[2])}"
+                                                    for c in BORDER_CASES])
+@pytest.mark.parametrize("pad_mode,hw", [(m, hw) for m in BORDER_HW for hw in BORDER_HW[m]])
+def test_kernel_border_cases_match_plain(cuda_device, dtype, case, pad_mode, hw):
+    """The forward's pads built in shared memory, at every border case,
+    against the f32 plain version (f32 1e-4, bf16 2e-2 on f32 plain with the
+    same bf16-rounded inputs), with bias, residual and ELU."""
+    ci, co, misaligned = case
+    x, w, b, r = _case(cuda_device, pad_mode, hw, ci, co, dtype, seed=sum(hw) + ci)
+    if misaligned:
+        flat = torch.empty(x.numel() + 1, device=cuda_device, dtype=dtype)
+        flat[1:] = x.reshape(-1)
+        x = flat[1:].view(x.shape)
+        assert x.data_ptr() % 16 != 0
+    before = fc.fused_conv3x3.launches
+    with torch.no_grad():
+        got = fc.fused_conv3x3(x, w, b, r, pad_mode=pad_mode, act="elu")
+        ref = fc.fused_conv3x3_plain(x.float(), w.float(), b.float(), r.float(),
+                                     pad_mode=pad_mode, act="elu")
+    torch.cuda.synchronize()
+    assert fc.fused_conv3x3.launches == before + 1
+    assert got.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode,hw,ci,co", [("up2_reflect", (96, 320), 64, 32),
+                                               ("reflect", (96, 320), 64, 64)])
+def test_kernel_is_deterministic_at_batch_12(cuda_device, dtype, pad_mode, hw, ci, co):
+    """The forward gives the same bits twice at batch-12 decoder shapes
+    (tail.conv1, block4.post.conv2): each output is written once, in a fixed
+    order."""
+    g = torch.Generator().manual_seed(41)
+    ho, wo = hw if pad_mode == "reflect" else (2 * hw[0], 2 * hw[1])
+    x = torch.randn(12, *hw, ci, generator=g).to(cuda_device, dtype)
+    w = (torch.randn(co, ci, 3, 3, generator=g) / (3 * ci ** 0.5)).to(cuda_device, dtype)
+    b = torch.randn(co, generator=g).to(cuda_device, dtype)
+    r = torch.randn(12, ho, wo, co, generator=g).to(cuda_device, dtype)
+    with torch.no_grad():
+        first = fc.fused_conv3x3(x, w, b, r, pad_mode=pad_mode, act="elu")
+        second = fc.fused_conv3x3(x, w, b, r, pad_mode=pad_mode, act="elu")
+    assert torch.equal(first, second)
+
+
+def _elu_sweep(n):
+    """n f32 pre-activations across the ELU's cases: NaN, +-0, +-inf, the
+    negative decades from -1e-30 to -100, both sides of expm1f's reduction
+    threshold (-0.41) and of the point where it returns -1 (2^j below 2^-25:
+    -17.3 to -17.7), then seeded normals."""
+    f = np.float32
+    edges = [np.nan, 0.0, -0.0, -np.inf, np.inf, 1e-30, 1.0, 3.5]
+    decades = -np.logspace(-30, 2, 1024)
+    around = []
+    for c in (-0.41, -17.3, -17.328679, -17.67531):
+        ulp = int(np.asarray(c, f).view(np.int32))
+        around.append(np.arange(ulp - 64, ulp + 65, dtype=np.int32).view(f))  # +-64 ulps
+        around.append(np.linspace(c - 0.05, c + 0.05, 512))
+    vals = np.concatenate([np.asarray(edges), decades, *around]).astype(f)
+    rest = np.random.default_rng(77).normal(0.0, 5.0, n - vals.size).astype(f)
+    return np.concatenate([vals, rest])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode", ["reflect", "up2_reflect"])
+def test_kernel_elu_bits_equal_expm1(cuda_device, dtype, pad_mode):
+    """With w = 0 and b = 0 the kernel's pre-activation is 0 + r, so its
+    output is the epilogue's ELU of the residual: the same bits as
+    torch.where(v > 0, v, torch.expm1(v)) on the card (libdevice's expm1f),
+    rounded to bf16 on the bf16 route, NaN where v is NaN."""
+    h, w_ = (8, 32) if pad_mode == "reflect" else (4, 16)
+    ho, wo = (h, w_) if pad_mode == "reflect" else (2 * h, 2 * w_)
+    co = 64
+    x = torch.randn(1, h, w_, 16, generator=torch.Generator().manual_seed(5))
+    x = x.to(cuda_device, dtype)
+    w = torch.zeros(co, 16, 3, 3, device=cuda_device, dtype=dtype)
+    b = torch.zeros(co, device=cuda_device, dtype=dtype)
+    r = torch.from_numpy(_elu_sweep(ho * wo * co).reshape(1, ho, wo, co))
+    r = r.to(cuda_device, dtype)
+    with torch.no_grad():
+        got = fc.fused_conv3x3(x, w, b, r, pad_mode=pad_mode, act="elu")
+        v = r.float() + 0.0  # -0 + 0 is +0, as in the kernel's sum
+        ref = torch.where(v > 0, v, torch.expm1(v)).to(dtype)
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    differ = (got.view(bits) != ref.view(bits)) & ~nan
+    assert not differ.any(), (f"{int(differ.sum())} outputs differ, at v = "
+                              f"{v[differ][:8].tolist()}: {got[differ][:8].tolist()} "
+                              f"against {ref[differ][:8].tolist()}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode", ["reflect", "up2_reflect"])
+@pytest.mark.parametrize("ci_lo,ci_hi,co",[(0, 3, 5), (5, 38, 17), (64, 128, 64), (0, 64, 70)])
+def test_pack_kernel_matches_plain_bitwise(cuda_device, dtype, pad_mode, ci_lo, ci_hi, co):
+    """The forward kernel's weight pre-pack (phase fold, TF32 hi/lo split,
+    wgmma's shared-memory image) equals fused_conv3x3_pack_plain byte for
+    byte, from an input-channel slice view too; it counts no launch."""
+    g = torch.Generator().manual_seed(ci_hi + co + 1)
+    w = (torch.randn(co, 128, 3, 3, generator=g) * 0.1).to(cuda_device, dtype)[:, ci_lo:ci_hi]
+    before = fc.fused_conv3x3.launches
+    got = fc.fused_conv3x3_pack(w, pad_mode=pad_mode)
+    assert fc.fused_conv3x3.launches == before
+    assert torch.equal(got.cpu(), fc.fused_conv3x3_pack_plain(w.cpu(), pad_mode=pad_mode))
+
+
 def test_kernel_without_bias_or_residual(cuda_device):
     x, w, _, _ = _case(cuda_device, "up2_reflect", (6, 10), 16, 8, torch.float32)
     with torch.no_grad():

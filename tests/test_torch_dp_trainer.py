@@ -33,7 +33,9 @@ from .test_trainer_e2e import _make_kitti_tree
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 300
-NUMBER = r"[-+0-9.eE]+|nan|inf"
+# a float and no more: where the other rank's message follows with no
+# newline between, its "Epoch" must not be read as an exponent
+NUMBER = r"-?\d+(?:\.\d+)?(?:[eE][-+]?\d+)?|nan|inf"
 
 
 def _env():
