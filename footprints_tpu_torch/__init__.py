@@ -30,6 +30,9 @@ Layout:
                  --pretrained_encoder reader and the .pth -> npz CLI
     checkpoint.py  writer and reader of the JAX package's ``checkpoint.npz``
     model_manager.py  network, optimizer, save and load
+    telemetry.py the spans at the layer boundaries: totals always, and
+                 while a torch.profiler session runs, profiler events, a
+                 ring on the profiler's clock and CUDA timing events
     predict_simple.py  the one-shot prediction CLI (a checkpoint, or
                  --artifact: a program that export.py wrote)
     export.py    the serving export: torch.export of the bf16 or f32

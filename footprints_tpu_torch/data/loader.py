@@ -16,6 +16,8 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import telemetry
+
 
 def collate(samples):
     """Stack a list of dict-of-array samples into a dict of batched arrays."""
@@ -127,7 +129,9 @@ class DataLoader:
 class BackgroundWriter:
     """One background thread draining a bounded queue of save thunks, so
     file writes overlap device work.  A thunk's error surfaces on the next
-    submit() or on close()."""
+    submit() or on close().  Each thunk runs in a ``writer.write`` span
+    (telemetry.py) with the unit of the span that submitted it, and
+    close() waits for the last in ``writer.flush``."""
 
     def __init__(self, max_pending=64):
         self._q = queue.Queue(maxsize=max_pending)
@@ -141,21 +145,23 @@ class BackgroundWriter:
             if item is None:
                 return
             if self._err is None:  # after an error, drain without running
-                fn, args, kwargs = item
+                unit, fn, args, kwargs = item
                 try:
-                    fn(*args, **kwargs)
+                    with telemetry.span("writer.write", unit=unit):
+                        fn(*args, **kwargs)
                 except Exception as e:
                     self._err = e
 
     def submit(self, fn, *args, **kwargs):
         if self._err is not None:
             raise self._err
-        self._q.put((fn, args, kwargs))
+        self._q.put((telemetry.current_unit(), fn, args, kwargs))
 
     def close(self):
         """Flush the queue, join the thread, re-raise any thunk error."""
-        self._q.put(None)
-        self._t.join()
+        with telemetry.span("writer.flush"):
+            self._q.put(None)
+            self._t.join()
         if self._err is not None:
             raise self._err
 

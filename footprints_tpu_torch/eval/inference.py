@@ -19,6 +19,7 @@ from ..core.config import load_config, readlines
 from ..data import DataLoader, get_inference_dataset_class
 from ..data.loader import BackgroundWriter
 from ..model_manager import ModelManager
+from ..telemetry import span
 
 
 def pad_batch(images, batch_size):
@@ -49,37 +50,46 @@ def dump_predictions(loader, forward, save_batch, *, batch_size, device, overlap
     while the host saves n; ``overlap=False`` waits for each batch before
     queueing the next (the serial order, for measurement).  The order of the
     work on the card is the same, so both write the same bytes.
+
+    Spans (telemetry.py), each with the batch's number as its unit:
+    ``dump.submit`` (pad, pin, upload, the forward and the copy back
+    queued, the event recorded), ``dump.wait`` (the wait on the event) and
+    ``dump.save`` (``save_batch``, blocking on a full queue included); the
+    writer's thread records ``writer.write`` for each save.
     """
     device = torch.device(device)
     cuda = device.type == "cuda"
 
-    def submit(inputs):
-        x = torch.from_numpy(np.ascontiguousarray(pad_batch(inputs["image"], batch_size)))
-        if cuda:
-            x = x.pin_memory()
-        with torch.inference_mode():
-            preds = forward(x.to(device, non_blocking=True))
-        if not cuda:
-            return preds, None, x, inputs
-        host = torch.empty(preds.shape, dtype=preds.dtype, pin_memory=True)
-        host.copy_(preds, non_blocking=True)
-        done = torch.cuda.current_stream(device).record_event()
+    def submit(unit, inputs):
+        with span("dump.submit", unit=unit):
+            x = torch.from_numpy(np.ascontiguousarray(pad_batch(inputs["image"], batch_size)))
+            if cuda:
+                x = x.pin_memory()
+            with torch.inference_mode():
+                preds = forward(x.to(device, non_blocking=True))
+            if not cuda:
+                return unit, preds, None, x, inputs
+            host = torch.empty(preds.shape, dtype=preds.dtype, pin_memory=True)
+            host.copy_(preds, non_blocking=True)
+            done = torch.cuda.current_stream(device).record_event()
         # x and host ride along until `done` has been waited on: a pinned
         # buffer freed and reused while its copy is in flight would ship
         # another batch's bytes
-        return host, done, x, inputs
+        return unit, host, done, x, inputs
 
-    def drain(writer, host, done, x, inputs):
-        if done is not None:
-            done.synchronize()
-        save_batch(writer, inputs, host.numpy()[:len(inputs["idx"])])
+    def drain(writer, unit, host, done, x, inputs):
+        with span("dump.wait", unit=unit):
+            if done is not None:
+                done.synchronize()
+        with span("dump.save", unit=unit):
+            save_batch(writer, inputs, host.numpy()[:len(inputs["idx"])])
 
     count = 0
     with BackgroundWriter() as writer:
         pending = None
-        for inputs in loader:
+        for unit, inputs in enumerate(loader):
             count += len(inputs["idx"])
-            nxt = submit(inputs)
+            nxt = submit(unit, inputs)
             if not overlap:
                 drain(writer, *nxt)
                 continue

@@ -35,6 +35,7 @@ from ..nn import init as nn_init
 from ..nn import resnet
 from ..nn.blocks import (ConvBlock, ConvUpsampleAndConcatBlock, OutConvBlock,
                          decoder_tail)
+from ..telemetry import span
 
 SCALES = ("1/8", "1/4", "1/2", "1/1")
 
@@ -100,20 +101,23 @@ class FootprintNetwork(nn.Module):
     Built on ``device`` and initialised from ``generator`` (torch defaults:
     Kaiming-normal-fan-out encoder convs, Kaiming-uniform decoder convs,
     identity BN).  Parameters are created on the meta device first, so
-    construction draws nothing from the global RNG.
+    construction draws nothing from the global RNG.  Construction is the
+    span ``model.build``; a forward, the spans ``encoder`` and ``decoder``
+    (one a decoder), timed on the card while tracing (telemetry.py).
     """
 
     def __init__(self, depth: int = 34, *, device="cpu", generator=None):
         super().__init__()
         self.depth = depth
         enc_channels = resnet.feature_channels(depth)
-        with torch.device("meta"):
-            self.encoder = resnet.ResnetEncoder(depth)
-            self.mask_decoder = SkipDecoder(enc_channels, apply_sigmoid=False)
-            self.depth_decoder = SkipDecoder(enc_channels, apply_sigmoid=True)
-        self.to_empty(device=device)
-        self.reset_parameters(generator if generator is not None
-                              else torch.Generator().manual_seed(0))
+        with span("model.build"):
+            with torch.device("meta"):
+                self.encoder = resnet.ResnetEncoder(depth)
+                self.mask_decoder = SkipDecoder(enc_channels, apply_sigmoid=False)
+                self.depth_decoder = SkipDecoder(enc_channels, apply_sigmoid=True)
+            self.to_empty(device=device)
+            self.reset_parameters(generator if generator is not None
+                                  else torch.Generator().manual_seed(0))
 
     def reset_parameters(self, generator):
         self.encoder.reset_parameters(generator)
@@ -131,9 +135,12 @@ class FootprintNetwork(nn.Module):
         16c..16c+15.  The training step scores them against packed targets
         (train/losses.py)."""
         x = image.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        features = self.encoder(x)
-        mask = self.mask_decoder(features, scales)
-        depth = self.depth_decoder(features, scales)
+        with span("encoder", device=x.device):
+            features = self.encoder(x)
+        with span("decoder", device=x.device):
+            mask = self.mask_decoder(features, scales)
+        with span("decoder", device=x.device):
+            depth = self.depth_decoder(features, scales)
         packs = {"1/1": ("1/1_s2d", s2d_pack)} if s2d_head else {}
         if p4_head:
             packs["1/2"] = ("1/2_s2d2", p4_pack)

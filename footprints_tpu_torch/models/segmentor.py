@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ..nn import resnet
 from ..parallel.halo import gather_rows, own_rows, row_mesh
+from ..telemetry import span
 from .footprint import SCALES, SkipDecoder
 
 PSP_POOL_SIZES = (1, 2, 4, 6)
@@ -86,7 +87,8 @@ class SegSkipDecoder(SkipDecoder):
 class Segmentor(nn.Module):
     """ResNet encoder + SegSkipDecoder, built on ``device`` and initialised
     from ``generator`` like the FootprintNetwork (the PSP's reduce convs get
-    the decoder convs' Kaiming-uniform init)."""
+    the decoder convs' Kaiming-uniform init), with its spans: ``model.build``,
+    ``encoder`` and ``decoder`` (the PSP inside)."""
 
     def __init__(self, depth: int = 34, use_psp: bool = True, *, device="cpu",
                  generator=None):
@@ -94,17 +96,22 @@ class Segmentor(nn.Module):
         self.depth = depth
         self.use_psp = use_psp
         enc_channels = resnet.feature_channels(depth)
-        with torch.device("meta"):
-            self.encoder = resnet.ResnetEncoder(depth)
-            self.decoder = SegSkipDecoder(enc_channels, use_psp)
-        self.to_empty(device=device)
-        generator = generator if generator is not None else torch.Generator().manual_seed(0)
-        self.encoder.reset_parameters(generator)
-        self.decoder.reset_parameters(generator)
+        with span("model.build"):
+            with torch.device("meta"):
+                self.encoder = resnet.ResnetEncoder(depth)
+                self.decoder = SegSkipDecoder(enc_channels, use_psp)
+            self.to_empty(device=device)
+            generator = generator if generator is not None else torch.Generator().manual_seed(0)
+            self.encoder.reset_parameters(generator)
+            self.decoder.reset_parameters(generator)
 
     def forward(self, image, scales=SCALES):
         """image: [N,H,W,3] in [0,1].  Returns the [N,h,w,1] logit maps at
         ``scales`` (all four by default: 1/8, 1/4, 1/2 and 1/1 of H,W); the
         dump asks for '1/1' alone and skips the other heads."""
         x = image.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return [y.permute(0, 2, 3, 1) for y in self.decoder(self.encoder(x), scales)]
+        with span("encoder", device=x.device):
+            features = self.encoder(x)
+        with span("decoder", device=x.device):
+            maps = self.decoder(features, scales)
+        return [y.permute(0, 2, 3, 1) for y in maps]

@@ -44,6 +44,8 @@ import itertools
 import torch
 import torch.distributed as dist
 
+from ..telemetry import span
+
 
 def spatial_mesh(mesh):
     """``mesh`` if it shards rows (``spatial > 1``), else None."""
@@ -126,7 +128,7 @@ class _HaloRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, above, below, mesh):
         h, j = x.shape[2], mesh.row_rank
-        with torch.profiler.record_function("exchange_rows"):
+        with span("exchange_rows"):
             # each rank's first `below` rows (the halo of the rank above) and
             # last `above` rows (the halo of the rank below)
             strips = _all_gather(torch.cat([x[:, :, :below], x[:, :, h - above:]], 2), mesh)
@@ -144,7 +146,7 @@ class _HaloRows(torch.autograd.Function):
         send = torch.cat([g_top if g_top.shape[2] else g_x.new_zeros((n, c, above, w)),
                           g_bottom if g_bottom.shape[2] else g_x.new_zeros((n, c, below, w))],
                          2)
-        with torch.profiler.record_function("exchange_rows.backward"):
+        with span("exchange_rows.backward"):
             strips = _all_gather(send, mesh, ctx.tag)
         exchange_rows.backward_calls += 1
         gx = g_x.clone()
@@ -193,7 +195,7 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh):
-        with torch.profiler.record_function("gather_rows"):
+        with span("gather_rows"):
             parts = _all_gather(x, mesh)
         exchange_rows.calls += 1
         ctx.mesh, ctx.rows, ctx.tag = mesh, x.shape[2], next(_SEQUENCE)
@@ -202,7 +204,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         mesh, rows = ctx.mesh, ctx.rows
-        with torch.profiler.record_function("gather_rows.backward"):
+        with span("gather_rows.backward"):
             parts = _all_gather(g, mesh, ctx.tag)
         exchange_rows.backward_calls += 1
         total = parts[0].float()

@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from ..telemetry import span
 from ..utils import select_device
 from .distributed import host_batch_slice, local_device
 
@@ -197,8 +198,8 @@ def all_reduce_gradients(mesh: Mesh, params):
     of one flat bucket after backward, then one multi-tensor copy back."""
     if not mesh.distributed:
         return
-    # a named span for the profiler (chip_smoke.py's phase dp reads it)
-    with torch.profiler.record_function("all_reduce_gradients"):
+    # a named span (telemetry.py; chip_smoke.py's phase dp reads it)
+    with span("all_reduce_gradients"):
         grads = [p.grad for p in params if p.grad is not None]
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat, group=mesh.group)

@@ -17,6 +17,7 @@ Usage:
 
 import argparse
 import glob
+import itertools
 import os
 
 import numpy as np
@@ -24,6 +25,7 @@ import torch
 
 from .core.ops import np_sigmoid_to_depth
 from .model_manager import ModelManager
+from .telemetry import span
 from .utils import MODEL_DIR, download_model_if_doesnt_exist, pil_loader
 
 MODEL_HEIGHT_WIDTH = {
@@ -40,6 +42,7 @@ class InferenceManager:
                  apply_sigmoid=False, batch_size=4, artifact=None,
                  device="cuda"):
         self._serving = None
+        self._calls = itertools.count()  # numbers the calls: their spans' unit
         if artifact is not None:
             self._load_artifact(artifact, device, height, width,
                                 apply_sigmoid or save_visualisations)
@@ -96,11 +99,16 @@ class InferenceManager:
         self.device = self._serving.device
 
     def _forward(self, batch):
-        """[B,H,W,3] numpy -> [B,4,H,W] numpy of the '1/1' scale."""
+        """[B,H,W,3] numpy -> [B,4,H,W] numpy of the '1/1' scale, in the
+        spans ``predict.forward`` (the upload and the forward, queued) and
+        ``predict.fetch`` (the wait for the card and the copy back)."""
         with torch.inference_mode():
-            x = torch.from_numpy(batch).to(self.device)
-            out = self.model_manager.net(x, scales=("1/1",))["1/1"]
-            return out.permute(0, 3, 1, 2).float().cpu().numpy()
+            with span("predict.forward"):
+                x = torch.from_numpy(batch).to(self.device)
+                out = self.model_manager.net(x, scales=("1/1",))["1/1"]
+                out = out.permute(0, 3, 1, 2).float()
+            with span("predict.fetch"):
+                return out.cpu().numpy()
 
     def _load_and_preprocess_image(self, image_path):
         from PIL import Image
@@ -111,16 +119,19 @@ class InferenceManager:
         return original, arr
 
     def _predict_batch(self, arrs):
-        """arrs: list of [H,W,3] -> [B,4,H,W] numpy (channels-first)."""
-        if self._serving is not None:
-            preds = self._serving.call(np.stack(arrs))
-        else:
-            batch = np.zeros((self.batch_size, self.height, self.width, 3), np.float32)
-            batch[: len(arrs)] = np.stack(arrs)
-            preds = self._forward(batch)[: len(arrs)]
-        if self.apply_sigmoid:
-            preds[:, :2] = 1.0 / (1.0 + np.exp(-preds[:, :2]))
-        return preds
+        """arrs: list of [H,W,3] -> [B,4,H,W] numpy (channels-first), in
+        the span ``predict.batch`` with the call's number as its unit (and
+        that of the spans inside)."""
+        with span("predict.batch", unit=next(self._calls)):
+            if self._serving is not None:
+                preds = self._serving.call(np.stack(arrs))
+            else:
+                batch = np.zeros((self.batch_size, self.height, self.width, 3), np.float32)
+                batch[: len(arrs)] = np.stack(arrs)
+                preds = self._forward(batch)[: len(arrs)]
+            if self.apply_sigmoid:
+                preds[:, :2] = 1.0 / (1.0 + np.exp(-preds[:, :2]))
+            return preds
 
     def predict_arrays(self, names, arrs, originals=None):
         """Predict preprocessed [H,W,3] arrays (at most one batch) and save

@@ -1,11 +1,8 @@
-"""Tensorboard and console logging, and wall-time accounting (counterpart
-of footprints_tpu/train/logger.py): lr and per-term scalars and, for up to
-4 batch items, the input image, target disparity and masks, and the
-full-scale predictions (disparity plasma-coloured).  matplotlib is imported
-only to colour an image panel."""
-
-import collections
-import time
+"""Tensorboard logging (counterpart of footprints_tpu/train/logger.py): lr
+and per-term scalars and, for up to 4 batch items, the input image, target
+disparity and masks, and the full-scale predictions (disparity
+plasma-coloured).  matplotlib is imported only to colour an image panel.
+The trainer's wall-time accounting is its spans (telemetry.py)."""
 
 import numpy as np
 
@@ -50,32 +47,3 @@ def log(writer, inputs, outputs, losses, lr, step, max_images=4):
         hidden_depth = np_sigmoid_to_depth(outputs[i, ..., 3])
         writer.add_image(f"pred_hidden_disp/{i}",
                          np.transpose(_plasma(1.0 / hidden_depth), (2, 0, 1)), step)
-
-
-class TimeLogger:
-    """Wall-clock accumulators (train/val/log), reference-style printout."""
-
-    def __init__(self):
-        self.timings = collections.defaultdict(float)
-
-    def add_time(self, timer, seconds):
-        self.timings[timer] += seconds
-
-    def print_time(self, printer=print):
-        for name, total in sorted(self.timings.items()):
-            printer(f"  {name}: {total:.1f}s")
-
-
-class Timer:
-    """Context manager feeding a TimeLogger."""
-
-    def __init__(self, logger: TimeLogger, name: str):
-        self.logger = logger
-        self.name = name
-
-    def __enter__(self):
-        self.t0 = time.time()
-        return self
-
-    def __exit__(self, *exc):
-        self.logger.add_time(self.name, time.time() - self.t0)

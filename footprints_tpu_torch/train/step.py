@@ -29,6 +29,7 @@ import torch
 
 from ..parallel.halo import shard_rows
 from ..parallel.mesh import all_reduce_gradients, mean_over_ranks
+from ..telemetry import span
 from .losses import LossConfig, compute_losses
 
 _F32 = (None, "float32", "f32")
@@ -125,6 +126,11 @@ def build_train_step(net, optimizer, config: TrainStepConfig, mesh=None):
     row-sharded; the gradients are averaged over the ranks after backward
     (the metrics stay this rank's: the trainer averages them at its log
     cadence).
+
+    Its spans (telemetry.py), each with ``step`` as its unit and timed on
+    the card while tracing: ``step.forward``, ``step.loss``,
+    ``step.backward`` and ``step.optimizer``, with ``all_reduce_gradients``
+    between the last two.
     """
     schedule = make_lr_schedule(config)
     dtype, heads = config.dtype, config.heads
@@ -135,14 +141,19 @@ def build_train_step(net, optimizer, config: TrainStepConfig, mesh=None):
         for group in optimizer.param_groups:
             group["lr"] = lr
         net.train()
+        device = batch["image"].device
         with shard_rows(net, mesh):
-            outputs = forward_in(net, batch["image"], dtype, heads)
-            losses = compute_losses(outputs, batch, config.loss)
-        optimizer.zero_grad(set_to_none=True)
-        losses["loss"].backward()
+            with span("step.forward", device=device, unit=step):
+                outputs = forward_in(net, batch["image"], dtype, heads)
+            with span("step.loss", device=device, unit=step):
+                losses = compute_losses(outputs, batch, config.loss)
+        with span("step.backward", device=device, unit=step):
+            optimizer.zero_grad(set_to_none=True)
+            losses["loss"].backward()
         if mesh is not None:
             all_reduce_gradients(mesh, params)
-        optimizer.step()
+        with span("step.optimizer", device=device, unit=step):
+            optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["lr"] = lr
         return metrics

@@ -24,6 +24,7 @@ validation at steps divisible by both 100 and ``log_freq`` (see
 checkpoint after the step in flight when SIGTERM arrives.
 """
 
+import itertools
 import os
 import signal
 import time
@@ -39,9 +40,10 @@ from ..ops.fused_conv import (fused_conv3x3, fused_conv3x3_dgrad,
                               fused_conv3x3_wgrad)
 from ..parallel import (any_rank, barrier, initialize, make_mesh, rank_seed,
                         replicate_tree, sync_batch_norm)
+from ..telemetry import span, totals
 from ..utils import sec_to_hm_str
 from .evaluator import Evaluator
-from .logger import TimeLogger, Timer, log
+from .logger import log
 from .losses import LossConfig
 from .losses import TARGET_KEYS
 from .step import (TrainStepConfig, build_eval_step, build_train_step,
@@ -132,7 +134,6 @@ class TrainManager:
         if self.mesh.rank == 0:
             self._open_writers()
 
-        self.timer = TimeLogger()
         self.step = self.model_manager.step
         self.num_total_steps = steps_per_epoch * self.opt.epochs
         self.val_iter = iter(self.val_loader)
@@ -214,16 +215,19 @@ class TrainManager:
         self._preempt_requested = True
 
     def run_epoch(self):
-        device_iter = DevicePrefetcher(map(self._compactor, self.train_loader),
-                                       self.device, depth=2, decode=self._decode)
-        for batch_idx, batch in enumerate(device_iter):
+        device_iter = iter(DevicePrefetcher(map(self._compactor, self.train_loader),
+                                            self.device, depth=2, decode=self._decode))
+        for batch_idx in itertools.count():
             self._profile_at(self.step)
-            before = time.time()
-            metrics = self.train_step(self.step, batch)
-            self.evaluator.accumulate(
-                {k: v for k, v in metrics.items() if k != "lr"}, mode="train")
+            with span("trainer.loader_wait", unit=self.step):
+                batch = next(device_iter, None)
+            if batch is None:
+                break
+            with span("trainer.step", unit=self.step):
+                metrics = self.train_step(self.step, batch)
+                self.evaluator.accumulate(
+                    {k: v for k, v in metrics.items() if k != "lr"}, mode="train")
             self.lr = metrics["lr"]
-            self.timer.add_time("train_network_time", time.time() - before)
 
             console, tb_and_val = log_cadence(self.step, self.opt.log_freq)
             if console:
@@ -231,7 +235,9 @@ class TrainManager:
                 self.logged.append(("train", self.step, losses))
                 print(f"Epoch {self.epoch} -- Batch {batch_idx} -- "
                       f"Loss {losses.get('loss', float('nan')):.4f}")
-                self.timer.print_time()
+                for name, total in sorted(totals().items()):
+                    if name.startswith("trainer."):
+                        print(f"  {name}: {total.seconds:.1f}s")
                 elapsed = time.time() - self.start_time
                 left = ((self.num_total_steps / self.step - 1.0) * elapsed
                         if self.step else 0)
@@ -240,8 +246,7 @@ class TrainManager:
 
                 if tb_and_val:
                     losses = self.evaluator.get_averaged_losses("train", reset=True)
-                    with Timer(self.timer, "log_time"):
-                        self._log(self.train_writer, batch, losses)
+                    self._log(self.train_writer, batch, losses)
                     self.val()
             self.step += 1
             self.model_manager.step = self.step
@@ -261,7 +266,7 @@ class TrainManager:
         barrier(self.mesh)
 
     def val(self):
-        with Timer(self.timer, "val_time"):
+        with span("trainer.val", unit=self.step):
             print("validating...")
             batch = None
             for _ in range(self.opt.val_batches):
@@ -275,8 +280,7 @@ class TrainManager:
             print("validation complete!")
         losses = self.evaluator.get_averaged_losses("val", reset=True)
         self.logged.append(("val", self.step, losses))
-        with Timer(self.timer, "log_time"):
-            self._log(self.val_writer, batch, losses)
+        self._log(self.val_writer, batch, losses)
 
     # ------------------------------------------------------------------
 
@@ -298,20 +302,22 @@ class TrainManager:
     def _log(self, writer, batch, losses):
         if writer is None:
             return
-        inputs = outputs = None
-        if getattr(self.opt, "log_images", False) and batch is not None:
-            net = self.model_manager.net
-            was_training = net.training
-            net.eval()
-            with torch.no_grad():
-                outputs = net(batch["image"][:4], scales=("1/1",))["1/1"].cpu().numpy()
-            net.train(was_training)
-            # the logger reads the full-resolution maps, not their packs
-            inputs = {k: v[:4].cpu().numpy() for k, v in batch.items() if "@s2d" not in k}
-        log(writer, inputs, outputs, losses, float(self.lr), self.step)
+        with span("trainer.log", unit=self.step):
+            inputs = outputs = None
+            if getattr(self.opt, "log_images", False) and batch is not None:
+                net = self.model_manager.net
+                was_training = net.training
+                net.eval()
+                with torch.no_grad():
+                    outputs = net(batch["image"][:4], scales=("1/1",))["1/1"].cpu().numpy()
+                net.train(was_training)
+                # the logger reads the full-resolution maps, not their packs
+                inputs = {k: v[:4].cpu().numpy() for k, v in batch.items() if "@s2d" not in k}
+            log(writer, inputs, outputs, losses, float(self.lr), self.step)
 
     def _profile_at(self, step):
-        """--profile_dir: a torch.profiler trace of steps 10 to 14."""
+        """--profile_dir: a torch.profiler trace of steps 10 to 14, their
+        loader waits included, with the spans of every layer (telemetry.py)."""
         profile_dir = getattr(self.opt, "profile_dir", None)
         if not profile_dir:
             return

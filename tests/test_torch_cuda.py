@@ -1257,3 +1257,65 @@ def test_spatial_eval_on_the_card_matches_one_process(cuda_device, tmp_path):
                 assert abs(got[k] - v.item()) <= 1e-5 + 1e-5 * abs(v.item()), k
     rows = np.concatenate([r["footprint"]["1/1"] for r in ranks], 1)
     assert float(np.abs(rows - out).mean()) < 1e-4
+
+
+def _spans_on_the_card(fn, names):
+    """fn() under a CUDA profiler session, then a synchronise: the recorded
+    spans named ``names`` and the host clock once the card had finished."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from footprints_tpu_torch import telemetry
+
+    telemetry.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
+        done_ns = time.time_ns()
+    return [s for s in telemetry.spans() if s.name in names], done_ns
+
+
+@pytest.mark.parametrize("work", ["matmuls", "footprint_forward", "train_step"])
+def test_span_device_ms_on_the_card(cuda_device, work):
+    from footprints_tpu_torch import telemetry
+
+    if work == "matmuls":
+        a = torch.randn(2048, 2048, device=cuda_device)
+
+        def fn():
+            with telemetry.span("matmuls", device=cuda_device, unit=0):
+                for _ in range(8):
+                    a @ a
+        names = ("matmuls",)
+    elif work == "footprint_forward":
+        net = FootprintNetwork(18, device=cuda_device).eval()
+        x = torch.rand(2, 64, 96, 3, device=cuda_device)
+
+        def fn():
+            with torch.no_grad():
+                net(x)
+        names = ("encoder", "decoder")
+    else:
+        from footprints_tpu_torch.model_manager import ModelManager
+
+        mm = ModelManager(depth=18, device=cuda_device)
+        step_fn = tstep.build_train_step(mm.net, mm.optimizer, mm.config)
+        g = torch.Generator(device=cuda_device).manual_seed(4)
+        batch = {k: (torch.rand(2, 64, 96, generator=g, device=cuda_device) > 0.5).float()
+                 for k in ("visible_ground", "all_ground", "depth_mask",
+                           "moving_object_mask")}
+        batch["image"] = torch.rand(2, 64, 96, 3, generator=g, device=cuda_device)
+        batch["depth"] = 1 + 20 * torch.rand(2, 64, 96, generator=g, device=cuda_device)
+        batch["ground_depth"] = batch["depth"] * batch["all_ground"]
+
+        def fn():
+            step_fn(0, batch)
+        names = ("step.forward", "step.loss", "step.backward", "step.optimizer")
+    fn()  # warm: the first calls pick cuDNN's algorithms
+    spans, done_ns = _spans_on_the_card(fn, names)
+    assert sorted({s.name for s in spans}) == sorted(names)
+    for s in spans:
+        assert s.device_ms is not None and np.isfinite(s.device_ms) and s.device_ms > 0, s
+        # the events lie inside the span's host start and the card's completion
+        assert s.device_ms <= (done_ns - s.start_ns) / 1e6, s
