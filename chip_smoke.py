@@ -9,17 +9,17 @@ final result line:
   1. device   torch and CUDA versions, the card's name and power limit;
   2. build    nvcc-builds the CUDA kernels from footprints_tpu_torch/csrc/;
   3. sites    holds fused_conv3x3 against its plain PyTorch version at the
-              5 decoder sites of the kitti 192x640 forward, batch 4, in f32
+              8 decoder sites of the kitti 192x640 forward, batch 4, in f32
               (atol = rtol = 1e-4, TF32 off on both sides: 576-term dot
               products summed in another order) and bf16 (2e-2 against the
               f32 plain version on the same bf16-rounded inputs: the output
-              is rounded to bf16), and at the 5 sites of the Matterport
+              is rounded to bf16), and at the 8 sites of the Matterport
               dump's 512x640 forward, batch 4, in f32;
   4. main     writes a seeded FootprintNetwork-34 as model.pth and serves
               it through footprints_tpu_torch.predict_simple on the GPU: one
               image, then folder mode over test_data/, each run again with
               --device cpu.  Checks each .npy is a finite [4,192,640] map
-              within MAE 1e-4 of its CPU twin, that the kernel ran 10 times
+              within MAE 1e-4 of its CPU twin, that the kernel ran 16 times
               per GPU batch, and that the GPU forward matches the CPU forward
               (MAE < 1e-4 at every scale);
   5. times    at each site, the mean time per call over 20 eager calls
@@ -40,7 +40,7 @@ final result line:
   6. profile  torch.profiler device time by kernel over the batch-16
               forward, the idle share, and the full table in
               smoke_out/profile_b16.json; checks the forward's two device
-              kernels (the pre-pack and the main kernel) ran 10 times each
+              kernels (the pre-pack and the main kernel) ran 16 times each
               per forward;
   7. train    trains FootprintNetwork-34 at 192x640, batch 12, through
               footprints_tpu_torch.main on a synthetic KITTI tree of
@@ -51,10 +51,10 @@ final result line:
               at step 0, 'exact' compact transport.  Checks every logged
               loss is finite, weights_0/checkpoint.npz holds step 4, a
               second TrainManager resumes step 4 and the Adam moments, and
-              the kernel ran 10 times per training forward and per
-              validation forward, the dgrad and wgrad kernels 10 times each
+              the kernel ran 16 times per training forward and per
+              validation forward, the dgrad and wgrad kernels 16 times each
               per step (the same counts in every rank of phases dp and
-              spatial, 5 for the Segmentor in every training phase).
+              spatial, 8 for the Segmentor in every training phase).
               Then one GPU step against one CPU step
               in f64 from the same weights and batch (batch 2, 192x640, the
               first validation samples): each loss term within
@@ -85,10 +85,9 @@ final result line:
               profiled step's CUDA-event span, unclamped) and the top
               operators by input shape, in full in
               smoke_out/profile_train_b12.json; and
-              cuDNN's time for the decoder's block2 post-concat conv at
-              batch 4, 8, 12 and 16, then for every conv of both models'
-              decoders that cuDNN runs (recorded from a forward), at each
-              batch, with the default heuristics and with
+              cuDNN's time for every conv of both models' decoders that
+              cuDNN runs (recorded from a forward) at batch 4, 8, 12 and
+              16, with the default heuristics and with
               torch.backends.cudnn.benchmark on (restored after), and the
               shapes and batches on a cliff (smoke_out/cudnn_probe.json);
   8a. probe  the clock64() probe (footprints_tpu_torch/ops/probe.py, its
@@ -101,7 +100,7 @@ final result line:
               resident per SM; the launch counters do not move;
   8b. train_bf16  on phase 7's data, main --mode train --compute_dtype
               bfloat16 (the packed heads on by 'auto'): 4 steps and the
-              step-0 validation, 50 launches all on the bf16 route, f32
+              step-0 validation, 80 launches all on the bf16 route, f32
               masters and checkpoint, the packed '@s2d'/'@s2d2' targets on
               the card batch, and a resume; at batch 2 on a seeded noise
               batch, the GPU bf16 step's gradient no farther from an f64
@@ -122,14 +121,14 @@ final result line:
   8d. dp     data parallelism (footprints_tpu_torch/parallel/), on phase 7's
               tree and batch: (a) python -m torch.distributed.run
               --standalone --nproc_per_node=1 -m footprints_tpu_torch.main
-              --mode train (NCCL, world 1) at batch 12: 50 launches (read
+              --mode train (NCCL, world 1) at batch 12: 80 launches (read
               from the rank's last line), a finite logged loss,
               weights_0/checkpoint.npz at step 4 written once and resumed
               by a plain TrainManager; (b) dryrun_multichip(2,
               device='cuda'): two ranks on the one card over gloo, one f32
               step and one bf16 packed-head step of FootprintNetwork-34 at
               192x640, 2 images a rank, replicas bitwise equal after each,
-              10 launches per rank per forward (the bf16 ones on the bf16
+              16 launches per rank per forward (the bf16 ones on the bf16
               route); (c) on phase 8b's batch-2 noise batch, the world-1
               (NCCL) and world-2 (gloo, 1 image a rank) DP steps against
               the f64 CPU step of phase 8b at phase 7's bars, the
@@ -147,11 +146,11 @@ final result line:
               10), noise batches: (a) FootprintNetwork-34 at 192x640,
               batch 4, 2 row shards: the f32 eval losses on every rank
               within 1e-5 + 1e-5|ref| of the single-process eval on the
-              card, the gathered '1/1' map within MAE 1e-4, 10 launches a
+              card, the gathered '1/1' map within MAE 1e-4, 16 launches a
               rank a forward; the bf16 eval with the packed heads no
               farther from the f32 eval than twice the single process's
-              bf16 eval + 1e-3, 10 bf16-route launches a rank; (b)
-              Segmentor-34 (PSP), the same at 5 launches (one world of 2
+              bf16 eval + 1e-3, 16 bf16-route launches a rank; (b)
+              Segmentor-34 (PSP), the same at 8 launches (one world of 2
               with (a)); (c) FootprintNetwork-34 at 512x640, batch 2, 4 row
               shards (middle ranks with a seam on each side), as (a).  In
               each, every kernel call of the main path (on the rank's rows
@@ -169,8 +168,8 @@ final result line:
               process on the card: f32 losses within 1e-5 + 1e-5|ref|,
               each gradient leaf before Adam ||d||/||ref|| < 2e-2 (worst
               printed), BN running stats within 1e-5, the replicas bitwise
-              equal over the ranks after Adam, 10 (5) launches a rank in
-              the forward and none in the backward, 10 (5) of each backward
+              equal over the ranks after Adam, 16 (8) launches a rank in
+              the forward and none in the backward, 16 (8) of each backward
               kernel a rank; bf16 no farther from
               the one-process f32 step than twice the one-process bf16
               step, plus 1e-3 at a loss term and 2^-8 at a gradient leaf.
@@ -182,13 +181,13 @@ final result line:
               torch.export program with the kernel as the custom op
               footprints::fused_conv3x3): a bf16 batch-16 artifact served
               over test_data/ through predict_simple --artifact (each .npy a
-              finite [4,192,640] map; 10 launches per batch, all bf16); a
+              finite [4,192,640] map; 16 launches per batch, all bf16); a
               bf16 batch-2 artifact on the card and on the CPU, each against
               the live f32 forward on its device (per-channel MAE: the card's
               at most twice the CPU's + 1e-3); an f32 batch-2 artifact
               within MAE 1e-4 of the live f32 forward; a seeded Segmentor-34
               (PSP) bf16 artifact at batch 12 through predict_simple's
-              manager (5 bf16 launches) against the live f32 Tester.forward
+              manager (8 bf16 launches) against the live f32 Tester.forward
               on the same frames, under the same rule.  Each export's wall
               time, size and count of ATen calls in its graph;
   8f. export_times  the bf16 artifact's imgs/s at batch 16 and p50 at
@@ -218,11 +217,12 @@ final result line:
               and CPU within 1e-2.  Times the dump (loader and writer
               included, host clock ending in a synchronise) over 192 frames
               (the 26, cycled) at batch 12 and 16, serial and overlapped,
-              and the block2 post-concat conv's time alone; and profiles
-              one overlapped dump at each: the device's busy share and the
-              conv's share of the busy and the wall time, each from the
+              and cuDNN's time alone for the block2 post-concat conv that
+              the fused kernel now runs (a yardstick); and profiles one
+              overlapped dump at each: the device's busy share from the
               union of the device events' intervals, beside their summed
-              durations and how many of them overlap on one stream;
+              durations and how many of them overlap on one stream, and
+              no cuDNN conv kernel at that conv's input;
  10. seg_dump the same for a seeded Segmentor-34 with PSP through
               footprints_tpu_torch.preprocessing.segmentation.main --mode
               inference over the sorted train+val split of the same 26
@@ -238,7 +238,7 @@ final result line:
               and PyYAML import; otherwise the Trainer on in-memory samples,
               and the route says so): 4 steps and the step-0 validation, in
               f32 and then with --compute_dtype bfloat16.  Checks every
-              logged loss is finite, 5 launches per training forward and per
+              logged loss is finite, 8 launches per training forward and per
               validation forward (in the bf16 run the training forwards' are
               the kernel's bf16 route), f32 master params, epoch_0/
               checkpoint.npz written in f32 and loaded by a second Trainer
@@ -254,9 +254,9 @@ final result line:
               batch; the seg step alone on a batch already on the card, f32
               and bf16, at batch 12 and 16: ms, imgs/s, peak memory, the
               forward / backward / Adam split, and one profiled step's busy
-              time with the block2 post-concat conv's share (its forward,
-              and its backward, each from the union of the device
-              intervals); at each fused site at batch 12, the kernel's bf16
+              time (the union of the device intervals), with no cuDNN conv
+              kernel, forward or backward, at the block2 post-concat conv's
+              input; at each fused site at batch 12, the kernel's bf16
               route and the op's registered bf16 gradients against
               autograd through the f32 plain version on the same
               bf16-rounded tensors (output 2e-2 + 2e-2|ref|; gradients
@@ -393,7 +393,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 TF32_PRODUCTS_PER_MAC = 3  # the f32 route's 3xTF32 split
 ROUTES = {torch.float32: "wgmma_tf32x3", torch.bfloat16: "wgmma_bf16"}
-LAUNCHES_PER_FORWARD = 10  # 5 sites x 2 decoders
+LAUNCHES_PER_FORWARD = 16  # 8 sites x 2 decoders
 TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES = 12, 4, 1
 # the FootprintNetwork trainer's rate with its loader: 16 batches of 12 after
 # one untimed batch, as the seg trainer's
@@ -401,17 +401,18 @@ TRAIN_TIMED_BATCHES = 16
 CHECK_BATCH = 2  # the GPU-vs-CPU train step
 KITTI_RAW_HW = (375, 1242)
 DUMP_BATCH, DUMP_FRAMES = 12, 26  # options.py's default batch; a padded tail of 2
-TIMED_BATCHES = (12, 16)  # the default batch, on cuDNN's f32 cliff, and past it
+TIMED_BATCHES = (12, 16)  # the default batch, and one past it
 # the timed dumps cycle through the 26 frames for 16 batches of 12 (12 of 16):
 # the loader builds each batch on one thread, so a dump of a few batches
 # times mostly the first batch's loading
 TIMED_FRAMES = 192
-SEG_LAUNCHES_PER_FORWARD = 5  # 5 sites x 1 decoder
+SEG_LAUNCHES_PER_FORWARD = 8  # 8 sites x 1 decoder
 MATTERPORT_HW, MATTERPORT_RAW_HW = (512, 640), (1024, 1280)
 MATTERPORT_FRAMES, MATTERPORT_BATCH = 6, 4
 F16_BAR = 2e-3  # a float16 dump against its CPU twin: 2e-3 + 2e-3|cpu|
-# the decoders' block2 post-concat conv1 input, reflect-padded, per image
-CLIFF_INPUT = [256, HEIGHT // 8 + 2, WIDTH // 8 + 2]
+# the decoders' block2 post-concat conv1 input, reflect-padded, per image: a
+# cuDNN conv there would mean the fused kernel no longer runs that block
+BLOCK2_POST_INPUT = [256, HEIGHT // 8 + 2, WIDTH // 8 + 2]
 # segmentation training: segmentation/options.py's default batch and datasets
 SEG_TRAIN_BATCH, SEG_TRAIN_STEPS, SEG_VAL_BATCHES = 12, 4, 1
 ADE20K_HW, CITYSCAPES_HW = (512, 683), (1024, 2048)
@@ -440,12 +441,17 @@ class Failures(list):
 
 
 def sites(batch, hw=(HEIGHT, WIDTH)):
-    """The kernel's 5 call sites per decoder in the forward at `hw` (192x640
+    """The kernel's 8 call sites per decoder in the forward at `hw` (192x640
     unless given): (name, pad_mode, input NHWC shape, Co, residual?, bias?,
     act)."""
     height, width = hw
     h2, w2, h4, w4 = height // 2, width // 2, height // 4, width // 4
+    h8, w8, h16, w16 = height // 8, width // 8, height // 16, width // 16
     return [
+        ("block2.post.conv1.up_half", "up2_reflect", (batch, h16, w16, 128), 128, False, False,
+         "none"),
+        ("block2.post.conv1.skip_half", "reflect", (batch, h8, w8, 128), 128, True, True, "elu"),
+        ("block2.post.conv2", "reflect", (batch, h8, w8, 128), 128, False, True, "elu"),
         ("block4.post.conv1.up_half", "up2_reflect", (batch, h4, w4, 64), 64, False, False, "none"),
         ("block4.post.conv1.skip_half", "reflect", (batch, h2, w2, 64), 64, True, True, "elu"),
         ("block4.post.conv2", "reflect", (batch, h2, w2, 64), 64, False, True, "elu"),
@@ -455,14 +461,14 @@ def sites(batch, hw=(HEIGHT, WIDTH)):
 
 
 def site_inputs(site, dtype, seed):
-    """Seeded (x, w, b, residual) on the card.  block4's two conv1 halves get
-    w as an input-channel slice view of one contiguous [Co, 2Ci, 3, 3]
-    weight (up half first), as nn/blocks.py passes them."""
+    """Seeded (x, w, b, residual) on the card.  The two conv1 halves of
+    block2 and block4 get w as an input-channel slice view of one contiguous
+    [Co, 2Ci, 3, 3] weight (up half first), as nn/blocks.py passes them."""
     name, pad_mode, shape, co, with_res, with_bias, _ = site
     g = torch.Generator().manual_seed(seed)
     n, h, w_, ci = shape
     ho, wo = (h, w_) if pad_mode == "reflect" else (2 * h, 2 * w_)
-    halves = name.startswith("block4.post.conv1.")
+    halves = ".post.conv1." in name
     x = torch.randn(shape, generator=g)
     w = torch.randn(co, 2 * ci if halves else ci, 3, 3, generator=g) / (3 * ci ** 0.5)
     b = torch.randn(co, generator=g) if with_bias else None
@@ -824,7 +830,7 @@ def phase_main(fail, workdir):
 
 def phase_times(net):
     """Per-site times at the main path's batch of 4, then the forward.
-    Returns the kernel's totals over one forward's 10 launches."""
+    Returns the kernel's totals over one forward's 16 launches."""
     totals = {k: 0.0 for k in ("ms", "ms_bf16", "graph_ms", "graph_ms_bf16", "plain_ms",
                                "library_ms", "library_ms_bf16", "bound_ms", "ops_ms",
                                "bytes_ms", "bound_ffma_ms", "bound_tc_ms",
@@ -1194,7 +1200,7 @@ def phase_train(fail, workdir):
     expected = LAUNCHES_PER_FORWARD * (TRAIN_STEPS + VAL_BATCHES * n_val_events)
     fail.check(n_val_events == 1 and launches == expected,
                f"train: {launches} kernel launches, expected {expected} "
-               f"(10 per training forward, 10 per validation forward; "
+               f"(16 per training forward, 16 per validation forward; "
                f"{n_val_events} validation events)")
     fail.check(tm.step == TRAIN_STEPS, f"train: step {tm.step}, expected {TRAIN_STEPS}")
     rest = tm.evaluator.get_averaged_losses("train")
@@ -1329,7 +1335,7 @@ def site_backward(fail, batch):
     for si, site in enumerate(sites(batch)):
         name, pad_mode, _, _, _, _, act = site
         x, w, b, r = site_inputs(site, torch.float32, seed=300 + si)
-        halves = w._base is not None  # block4's halves: slices of one weight
+        halves = w._base is not None  # conv1's halves: slices of one weight
         ci = x.shape[-1]
         inputs = {k: t for k, t in (("x", x), ("w", w._base if halves else w),
                                     ("b", b), ("residual", r)) if t is not None}
@@ -1460,21 +1466,13 @@ def decoder_conv_calls():
 
 
 def cudnn_batch_probe(batches=(4, 8, 12, 16)):
-    """cuDNN's f32 time (TF32 off) per call, mean of 5 after 2: the
-    decoder's block2 post-concat conv1, reflect-padded [N,256,26,82] *
-    [128,256,3,3] in NCHW (the first probe's form) at each batch N; then every conv
+    """cuDNN's f32 time (TF32 off) per call, mean of 5 after 2, of every conv
     of both decoders that cuDNN runs, in the memory format and with the
     bias the model passes, at each batch, with the default heuristics and
     with torch.backends.cudnn.benchmark on (restored after).  A shape is on
     a cliff at a batch where its time per image exceeds 4x its least time
     per image over the batches (and 1 ms per call)."""
-    out = {}
-    w = torch.randn(128, 256, 3, 3, device="cuda") * 0.02
-    for n in batches:
-        x = torch.randn(n, 256, 26, 82, device="cuda")
-        out[f"batch_{n}_ms"] = time_ms(lambda: F.conv2d(x, w), iters=5, warmup=2)
-    del x, w
-    rows = []
+    out, rows = {}, []
     prior = torch.backends.cudnn.benchmark
     try:
         for (shape, wshape, bias, stride, padding, cl), models in decoder_conv_calls().items():
@@ -1666,7 +1664,7 @@ def phase_train_bf16(fail, run, workdir):
     expected = LAUNCHES_PER_FORWARD * (TRAIN_STEPS + VAL_BATCHES * n_val)
     fail.check(n_val == 1 and launches == bf16 == expected,
                f"train_bf16: {launches} kernel launches ({bf16} bf16), expected {expected}, "
-               f"all bf16 (10 per training forward, 10 per validation forward; "
+               f"all bf16 (16 per training forward, 16 per validation forward; "
                f"{n_val} validation events)")
     heads = (tm.step_config.s2d_head, tm.step_config.p4_head)
     fail.check(heads == (True, True), f"train_bf16: heads {heads} under 'auto', expected on")
@@ -1801,7 +1799,7 @@ def phase_pretrained(fail, run, workdir):
     """--pretrained_encoder: a synthetic torchvision-layout ResNet-34 .pth;
     one bf16 step from it through the trainer main.main builds.  Checks the
     step-0 encoder equals the file's weights exactly (and BN statistics),
-    10 launches for the step and 10 for its validation.  Returns them."""
+    16 launches for the step and 16 for its validation.  Returns them."""
     path = os.path.join(workdir, "resnet34_torchvision.pth")
     want = write_torchvision_resnet34(path, SEED)
     tm = trainer_for(run, ["--compute_dtype", "bfloat16", "--model_name", "smoke_pretrained",
@@ -2120,18 +2118,13 @@ def profile_dump(run, batch):
     raw device events: the device's busy share (the union of their
     intervals over the dump's wall time, both under the profiler) beside
     their summed durations, their streams and how many overlap on one
-    stream; the same for the block2 post-concat conv's kernels (those
-    linked by correlation id to a conv op of its input shape), and their
-    union's share of the busy time and of the wall time."""
+    stream; and the count of kernels of a cuDNN conv at block2's
+    post-concat input (block2_cudnn_kernels), which the fused kernel runs."""
     wall_ms, raw = profiled(lambda: run(True))
-    cliff_ops = cliff_op_ids(raw, batch)
-    spans, cliff = device_spans(raw), device_spans(raw, cliff_ops)
-    busy, cliff_summary = span_summary(spans), span_summary(cliff)
+    busy = span_summary(device_spans(raw))
     return {"wall_ms": wall_ms, "busy_share": busy["ms_union"] / wall_ms,
-            "device": busy, "cliff_ops": len(cliff_ops), "cliff_kernels": len(cliff),
-            "cliff": cliff_summary,
-            "cliff_share_of_busy": cliff_summary["ms_union"] / max(busy["ms_union"], 1e-9),
-            "cliff_share_of_wall": cliff_summary["ms_union"] / wall_ms}
+            "device": busy,
+            "block2_cudnn_kernels": len(device_spans(raw, block2_conv_op_ids(raw, batch)))}
 
 
 def profiled(fn):
@@ -2149,13 +2142,13 @@ def profiled(fn):
     return wall_ms, prof.profiler.kineto_results.events()
 
 
-def cliff_op_ids(raw, batch, backward=False):
-    """Correlation ids of the CPU ops of the block2 post-concat conv at
-    `batch`: the forward convs (input [batch, *CLIFF_INPUT] first) or, with
-    `backward`, convolution_backward (that input second)."""
+def block2_conv_op_ids(raw, batch, backward=False):
+    """Correlation ids of the CPU conv ops at block2's post-concat input at
+    `batch`: the forward convs (input [batch, *BLOCK2_POST_INPUT] first) or,
+    with `backward`, convolution_backward (that input second)."""
     from torch.autograd import DeviceType
 
-    want, at = [batch, *CLIFF_INPUT], 1 if backward else 0
+    want, at = [batch, *BLOCK2_POST_INPUT], 1 if backward else 0
     return {e.correlation_id() for e in raw
             if e.device_type() == DeviceType.CPU and "conv" in e.name()
             and ("backward" in e.name()) == backward
@@ -2177,9 +2170,7 @@ def time_dumps(fail, make_manager, run_into, workdir, launches_per_batch):
     (host clock from the call to its return, which waits for the last
     save), serial and overlapped in the order serial, overlapped,
     overlapped, serial after one warm-up dump; the loader alone over the
-    same split; the cliff conv's time alone (cudnn_batch_probe), which
-    varies between calls and runs, so it is no share of a dump's time;
-    then one profiled dump."""
+    same split; then one profiled dump."""
     rows = {}
     for batch in TIMED_BATCHES:
         manager = make_manager(batch)
@@ -2205,16 +2196,15 @@ def time_dumps(fail, make_manager, run_into, workdir, launches_per_batch):
         t0 = time.perf_counter()  # the loader alone: the host's rate limit
         loaded = sum(len(b["idx"]) for b in manager.loader)
         loader_rate = loaded / (time.perf_counter() - t0)
-        cliff_ms = cudnn_batch_probe((batch,))[f"batch_{batch}_ms"]
         profiled = profile_dump(run, batch)
-        fail.check(profiled["cliff_kernels"] > 0,
-                   f"profiled dump at batch {batch}: no kernel linked to the cliff conv")
+        fail.check(profiled["block2_cudnn_kernels"] == 0,
+                   f"profiled dump at batch {batch}: {profiled['block2_cudnn_kernels']} kernels "
+                   f"of a cuDNN conv at block2's post-concat input, which the fused kernel runs")
         rows[f"batch_{batch}"] = {
             "imgs_per_s_serial": rates["serial"],
             "imgs_per_s_overlapped": rates["overlapped"],
             "imgs_per_s_loader_alone": loader_rate,
             "images": n, "batches": n_batches,
-            "cliff_ms_per_call_alone": cliff_ms,
             "profile": profiled}
     return rows
 
@@ -2830,8 +2820,9 @@ def phase_seg_train_times(fail, host, timed_trainer):
     each over SEG_TIMED_BATCHES batches of 12 after an untimed first batch;
     the seg step alone on a batch already on the card, f32 and bf16, at
     batch 12 and 16: ms, imgs/s, peak memory, the forward / backward / Adam
-    split, and one profiled step's busy time with the cliff conv's share
-    (forward, and its backward, from unions of device intervals); then the
+    split, and one profiled step's busy time (a union of device intervals),
+    beside the kernels of a cuDNN conv at the block2 post-concat conv's
+    input, forward and backward (none: the fused kernel runs it); then the
     bf16 route at each fused site at batch 12."""
     trainer_rates = {}
     for name in SEG_DTYPES:
@@ -2868,19 +2859,16 @@ def phase_seg_train_times(fail, host, timed_trainer):
                     split[key] += ev[i].elapsed_time(ev[i + 1]) / 5
             wall_ms, raw = profiled(lambda: step(0, b))
             busy = span_summary(device_spans(raw))
-            fwd = span_summary(device_spans(raw, cliff_op_ids(raw, batch)))
-            bwd = span_summary(device_spans(raw, cliff_op_ids(raw, batch, backward=True)))
-            fail.check(busy["ms_union"] > 0 and fwd["ms_union"] > 0,
-                       f"seg_train_times {name} b{batch}: the profile saw no device time "
-                       f"or no cliff conv kernel")
+            block2 = sum(len(device_spans(raw, block2_conv_op_ids(raw, batch, bwd)))
+                         for bwd in (False, True))
+            fail.check(busy["ms_union"] > 0 and block2 == 0,
+                       f"seg_train_times {name} b{batch}: the profile saw no device time, "
+                       f"or a cuDNN conv at block2's post-concat input, which the fused "
+                       f"kernel runs")
             rows[f"{name}_b{batch}"] = {
                 "step_ms": ms, "imgs_per_s": batch / (ms * 1e-3), "peak_memory_gib": peak,
                 **split, "profiled_wall_ms": wall_ms, "busy_ms_union": busy["ms_union"],
-                "busy_share_of_profiled_wall": busy["ms_union"] / wall_ms,
-                "cliff_fwd_ms_union": fwd["ms_union"], "cliff_fwd_kernels_streams": fwd["streams"],
-                "cliff_fwd_share_of_busy": fwd["ms_union"] / max(busy["ms_union"], 1e-9),
-                "cliff_bwd_ms_union": bwd["ms_union"],
-                "cliff_bwd_share_of_busy": bwd["ms_union"] / max(busy["ms_union"], 1e-9)}
+                "busy_share_of_profiled_wall": busy["ms_union"] / wall_ms}
             del net, optimizer, step, b
             torch.cuda.empty_cache()
     emit("seg_train_times", model="Segmentor-34 with PSP, 192x640", steps=rows,
@@ -4657,7 +4645,7 @@ def main():
                              else "bytes"),
                 "library_ms": totals["library_ms"]}]
     # the backward kernels: their launches on the training paths, their
-    # times per FootprintNetwork f32 step at batch 12 (10 launches each)
+    # times per FootprintNetwork f32 step at batch 12 (16 launches each)
     for k in BWD_KERNELS:
         t = bwd_totals[TRAIN_BATCH][k["name"]]
         kernels.append({**k, "launches": BWD_LAUNCHES[k["name"]],

@@ -120,6 +120,12 @@ struct Dg {
   static constexpr int HBOX = PLANE_PIX * RB;                // bytes of one halo box
   static constexpr int H_BYTES = (int)align1024(HBOX);       // one halo buffer
   static constexpr int ACC = NP / 2;                         // accumulators per m64 row set
+  // f32 sums each stage on the tensor cores from zero, then adds it to the
+  // tile's sums in f32, rounded to nearest, as the forward does: the tensor
+  // cores' adds truncate, and one accumulator through a whole tile drifted
+  // toward zero by 1.7e-6 (the tail's conv2) to 1.2e-5 (block2's up half)
+  // of the sum; summed a stage at a time, under 0.9e-6 (H100, batch 4)
+  static constexpr bool STAGE_SUMS = kF32;
   // the ring (B, then halo buffers), the f32 lo plane, a zero row and the
   // mbarriers, past up to 1023 bytes that align the base to 1024
   static constexpr size_t smem() {
@@ -268,6 +274,7 @@ fused_conv3x3_dgrad_kernel(const T* __restrict__ gz, const uint8_t* __restrict__
   };
 
   float acc[G::WR][G::ACC];
+  float sum[G::WR][G::ACC];  // STAGE_SUMS: the tile's sums over its stages
 
   // ldmatrix row address of this lane, as the forward's: pixel a_px of the
   // warp's row, bytes a_col.. of the k-step, through the swizzle
@@ -318,7 +325,10 @@ fused_conv3x3_dgrad_kernel(const T* __restrict__ gz, const uint8_t* __restrict__
 #pragma unroll
     for (int m = 0; m < G::WR; ++m)
 #pragma unroll
-      for (int j = 0; j < G::ACC; ++j) acc[m][j] = 0.f;
+      for (int j = 0; j < G::ACC; ++j) {
+        acc[m][j] = 0.f;
+        if constexpr (G::STAGE_SUMS) sum[m][j] = 0.f;
+      }
     for (int s = 0; s < S; ++s) {
       const int q = k * S + s;
       const int buf = q % G::RING;
@@ -437,6 +447,15 @@ fused_conv3x3_dgrad_kernel(const T* __restrict__ gz, const uint8_t* __restrict__
       }
 #pragma unroll
       for (int m = 0; m < G::WR; ++m) wgmma_fence_regs(acc[m]);
+      if constexpr (G::STAGE_SUMS) {
+#pragma unroll
+        for (int m = 0; m < G::WR; ++m)
+#pragma unroll
+          for (int j = 0; j < G::ACC; ++j) {
+            sum[m][j] += acc[m][j];
+            acc[m][j] = 0.f;
+          }
+      }
       PROBE_MARK(probe, mma);
     }
     // epilogue: lanes t and t^1 swap halves so each owns 4 consecutive
@@ -448,7 +467,7 @@ fused_conv3x3_dgrad_kernel(const T* __restrict__ gz, const uint8_t* __restrict__
       const int oy = tl.my0 + rbase + m;
 #pragma unroll
       for (int j = 0; j < NP / 8; ++j) {
-        const float* c = &acc[m][4 * j];
+        const float* c = G::STAGE_SUMS ? &sum[m][4 * j] : &acc[m][4 * j];
         const float s0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
         const float s1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
         const float v[4] = {odd ? s0 : c[0], odd ? s1 : c[1], odd ? c[2] : s0,

@@ -46,13 +46,21 @@ DEPTH = 2
 HIDDEN_DEPTH = 3
 
 DECODER_CHANNELS = (256, 128, 64, 64)
+# the decoder blocks whose post-concat ConvBlock runs through the CUDA kernel
+# (nn/blocks.py): block2's 128 channels at 1/8 scale, where cuDNN's f32
+# heuristics fall off a cliff at batch 12, and block4's 64 at 1/2 scale
+FUSED_BLOCKS = (2, 4)
 
 
 class SkipDecoder(nn.Module):
     """Monodepth2-style U-Net decoder over 5 encoder features.  ``in_ch``
     is the deepest input's width (the last feature's unless a bottleneck
     widens it); ``out_scales`` upsample the '1/8', '1/4' and '1/2' heads
-    to full resolution (1, 1, 1 leaves them at their native scales)."""
+    to full resolution (1, 1, 1 leaves them at their native scales).
+
+    Blocks 2 and 4 (``FUSED_BLOCKS``) run their post-concat ConvBlock
+    through the CUDA kernel, 3 launches each, and the tail ConvBlock 2:
+    8 launches per decoder per forward; blocks 1 and 3 stay on cuDNN."""
 
     def __init__(self, enc_channels, apply_sigmoid, out_ch=2, in_ch=None,
                  out_scales=(8, 4, 2)):
@@ -60,7 +68,7 @@ class SkipDecoder(nn.Module):
         c_in = enc_channels[-1] if in_ch is None else in_ch
         skips = enc_channels[-2::-1]
         for i, (c_out, skip_ch) in enumerate(zip(DECODER_CHANNELS, skips), 1):
-            block = ConvUpsampleAndConcatBlock(c_in, c_out, skip_ch, fused=i == 4)
+            block = ConvUpsampleAndConcatBlock(c_in, c_out, skip_ch, fused=i in FUSED_BLOCKS)
             setattr(self, f"block{i}", block)
             c_in = c_out
         s8, s4, s2 = out_scales

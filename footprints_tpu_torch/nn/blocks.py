@@ -10,14 +10,16 @@ them (use_bn=False), so a reference state_dict loads strictly.  They are
 frozen (``requires_grad=False``): the JAX pytree has no such leaves, so the
 optimizer never sees them.
 
-The decoder's full-resolution convs run through the hand-written CUDA kernel
-(ops/fused_conv.py), every time, in training as in serving: block4's
-post-concat ConvBlock (``ConvUpsampleAndConcatBlock(fused=True)``) and the
-tail ConvBlock (``decoder_tail``), 5 launches per decoder per forward.  Their
+Three of the decoder's ConvBlocks run through the hand-written CUDA kernel
+(ops/fused_conv.py), every time, at every batch, in training as in serving:
+the post-concat ConvBlocks of block2 and block4
+(``ConvUpsampleAndConcatBlock(fused=True)``, 3 launches each) and the tail
+ConvBlock (``decoder_tail``, 2), 8 launches per decoder per forward.  Their
 backward is the op's registered autograd: the hand-written dgrad and wgrad
-kernels, 5 launches each per decoder per step.  The other convs are
+kernels, 8 launches each per decoder per step.  The other convs are
 ``F.pad(reflect)`` + ``F.conv2d``.  Tensors are NCHW views of channels_last
-memory; the kernel sites permute them to NHWC views.
+memory; the kernel sites permute them to NHWC views, and a fused block
+returns the NCHW view of the kernel's NHWC output.
 
 Inside ``parallel.halo.shard_rows`` each block runs on a row shard: the
 reflect convs and the bilinear heads exchange their halo rows
@@ -87,7 +89,9 @@ class ConvUpsampleAndConcatBlock(nn.Module):
     the JAX decomposition (footprints_tpu/nn/blocks.py:123-127): conv1 over
     concat(up(x), skip) splits linearly into an up-conv of x with the first
     ``out_ch`` input channels of the weight plus a conv of skip with the
-    rest, so neither the upsampled nor the concatenated tensor exists.
+    rest, so neither the upsampled, the concatenated nor the padded tensor
+    exists; then conv2.  3 launches: the up-conv, the skip's conv with the
+    bias, the up-conv as its residual and ELU, and conv2 with ELU.
     """
 
     def __init__(self, in_ch, out_ch, skip_ch=None, *, fused=False):

@@ -286,7 +286,9 @@ def footprint_eval_rank(mesh, state_dict_path, batch):
     """On this rank's shard of ``batch``, on its device: the
     FootprintNetwork-18's spatial eval losses in f32 and in bf16 with the
     packed heads, its rows of the f32 '1/1' map, and the kernel's launches
-    in each eval (0 on the CPU)."""
+    in each eval: on the card 16, every site on the rank's rows (8 a decoder:
+    block2's post-concat ConvBlock 3, block4's 3, the tail's 2), 0 on the
+    CPU."""
     net = _footprint_net(state_dict_path, mesh.device)
     local = shard_batch(mesh, batch)
     out = {"shard": {k: v.cpu().numpy() for k, v in local.items()}}
@@ -406,7 +408,9 @@ def spatial_step_rank(mesh, model, state_dict_path, batch, config=None):
     keywords) or Segmentor-18 (PSP; ``config``: {'compute_dtype': ...}) from
     the weights in ``state_dict_path``, on this rank's shard of ``batch`` on
     its device: ``_step_result``, this rank's forward and backward
-    exchanges and the kernel's launches (0 on the CPU)."""
+    exchanges and the kernel's forward launches: on the card 16 for the
+    FootprintNetwork and 8 for the Segmentor (8 sites a decoder: block2's
+    post-concat ConvBlock 3, block4's 3, the tail's 2), 0 on the CPU."""
     config = config or {}
     if model == "footprint":
         net = _footprint_net(state_dict_path, mesh.device)

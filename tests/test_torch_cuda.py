@@ -39,6 +39,14 @@ from footprints_tpu_torch.train import step as tstep
 
 pytestmark = pytest.mark.cuda
 
+# The kernel's sites a decoder, each one forward launch per forward and one
+# dgrad and one wgrad launch per train step: the post-concat ConvBlocks of
+# block2 and block4 (conv1's up half, conv1's skip half with the up half as
+# its residual, conv2) and the tail ConvBlock (conv1 an up site, conv2).
+SITES_PER_DECODER = {"block2": 3, "block4": 3, "tail": 2}
+SEG_LAUNCHES = sum(SITES_PER_DECODER.values())  # one decoder: 8
+FP_LAUNCHES = 2 * SEG_LAUNCHES  # two decoders: 16
+
 
 @pytest.fixture
 def cuda_device():
@@ -117,6 +125,51 @@ def test_kernel_f32_is_not_single_pass_tf32(cuda_device, pad_mode):
     bar = 1e-4 + 1e-4 * ref.abs()
     assert ((one_pass - ref).abs() / bar).max() > 10
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+# the decoder's f32 sites at batch 2: (pad_mode, input H x W, Ci, Co) of
+# block2's, block4's and the tail's convs (N = 64 and N = 32 tiles)
+BIAS_SITES = [("reflect", (24, 80), 128, 128), ("up2_reflect", (12, 40), 128, 128),
+              ("reflect", (96, 320), 64, 64), ("up2_reflect", (48, 160), 64, 64),
+              ("up2_reflect", (96, 320), 64, 32), ("reflect", (192, 640), 32, 32)]
+
+
+def _sign_bias(got, ref):
+    """The mean error along the exact value's sign, over the mean |exact|:
+    negative where the sums drift toward zero."""
+    return float(((got.double() - ref) * ref.sign()).mean() / ref.abs().mean())
+
+
+@pytest.mark.parametrize("kind", ["forward", "dgrad", "wgrad"])
+@pytest.mark.parametrize("pad_mode,hw,ci,co", BIAS_SITES)
+def test_kernel_f32_sums_are_not_biased_toward_zero(cuda_device, kind, pad_mode, hw, ci, co):
+    """The f32 route's forward, dgrad and wgrad at the decoder's sites: the
+    mean error along the exact value's sign, over the mean |exact|, within
+    2e-6 of 0.  The tensor cores' adds truncate: one accumulator through a
+    whole tile drifted toward zero by 3.5e-6 (block4's skip half) to 7.0e-6
+    (block2's) of the sum in the forward, which moved a train step's loss
+    by up to 1.2e-6, and by 1.7e-6 to 1.2e-5 in dgrad; each stage summed
+    from zero and added in f32 (the forward's and dgrad's stages, wgrad's
+    tiles) reads under 1e-6 (cuDNN's f32 conv: 1e-10 to 3e-7), except the
+    forward at the tail's conv1 (up2_reflect at N = 32, one sum a tile:
+    ~1.5e-6)."""
+    g = torch.Generator(device=cuda_device).manual_seed(ci + co + hw[0])
+    f = 1 if pad_mode == "reflect" else 2
+    x = torch.randn(2, *hw, ci, device=cuda_device, generator=g)
+    w = torch.randn(co, ci, 3, 3, device=cuda_device, generator=g) / (3 * ci ** 0.5)
+    gz = torch.randn(2, f * hw[0], f * hw[1], co, device=cuda_device, generator=g)
+    with torch.no_grad():
+        if kind == "forward":
+            got = fc.fused_conv3x3(x, w, pad_mode=pad_mode, act="none")
+            ref = fc.fused_conv3x3_plain(x.double(), w.double(), pad_mode=pad_mode, act="none")
+        elif kind == "dgrad":
+            got = fc.fused_conv3x3_dgrad(gz, w, pad_mode=pad_mode)
+            ref = fc.fused_conv3x3_dgrad_plain(gz.double(), w.double(), pad_mode=pad_mode)
+        else:
+            got = fc.fused_conv3x3_wgrad(gz, x, pad_mode=pad_mode)
+            ref = fc.fused_conv3x3_wgrad_plain(gz.double(), x.double(), pad_mode=pad_mode)
+    bias = _sign_bias(got, ref)
+    assert abs(bias) < 2e-6, bias
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -304,8 +357,8 @@ def _live_forward(net, x):
 
 
 def test_bf16_artifact_on_the_card(cuda_device, tmp_path):
-    """A bf16 artifact exported on the card runs the kernel's bf16 route 10
-    times a batch there, and also loads on the CPU; its per-channel MAE
+    """A bf16 artifact exported on the card runs the kernel's bf16 route 16
+    times a batch there (FP_LAUNCHES), and also loads on the CPU; its per-channel MAE
     against the live f32 forward on the card is at most twice the CPU's
     + 1e-3."""
     from footprints_tpu_torch import export
@@ -321,7 +374,7 @@ def test_bf16_artifact_on_the_card(cuda_device, tmp_path):
     got = card.call(x)
     torch.cuda.synchronize()
     assert (fc.fused_conv3x3.launches - before[0],
-            fc.fused_conv3x3.bf16_launches - before[1]) == (20, 20)  # 2 batches
+            fc.fused_conv3x3.bf16_launches - before[1]) == (2 * FP_LAUNCHES,) * 2  # 2 batches
     cpu = export.load_serving(out, device="cpu").call(x)
     ref_card = _live_forward(net.to(cuda_device), torch.from_numpy(x).to(cuda_device))
     ref_cpu = _live_forward(net.cpu(), torch.from_numpy(x))
@@ -341,7 +394,7 @@ def test_model_gpu_forward_matches_cpu(cuda_device):
     with torch.no_grad():
         got = net_gpu(x.to(cuda_device))
         ref = net_cpu(x)
-    assert fc.fused_conv3x3.launches == before + 10
+    assert fc.fused_conv3x3.launches == before + FP_LAUNCHES
     for k in SCALES:
         assert (got[k].cpu() - ref[k]).abs().mean() < 1e-4, k
 
@@ -425,7 +478,8 @@ def test_train_step_gpu_matches_cpu(cuda_device):
     several 1e-3 from the exact one at the deep encoder's leaves, where
     train-mode BN's backward nearly cancels at batch 2, so two f32 steps can
     differ by the whole bar): losses 1e-5 + 1e-5|ref|, each gradient
-    ||d||/||ref|| < 2e-2, BN running stats 1e-5; 10 kernel launches."""
+    ||d||/||ref|| < 2e-2, BN running stats 1e-5; 16 kernel launches
+    (FP_LAUNCHES)."""
     g = torch.Generator().manual_seed(23)
     nets = {d: FootprintNetwork(18, device=d, generator=torch.Generator().manual_seed(23))
             for d in (cuda_device, "cpu")}
@@ -449,7 +503,7 @@ def test_train_step_gpu_matches_cpu(cuda_device):
                             {k: v.cpu().double() for k, v in net.state_dict().items()})
     (m_gpu, n_gpu, g_gpu, sd_gpu), (m_cpu, n_cpu, g_cpu, sd_cpu) = \
         out[str(cuda_device)], out["cpu"]
-    assert (n_gpu, n_cpu) == (10, 0)
+    assert (n_gpu, n_cpu) == (FP_LAUNCHES, 0)
     for k, v in m_cpu.items():
         if k != "lr":
             assert abs(m_gpu[k].item() - v.item()) <= 1e-5 + 1e-5 * abs(v.item()), k
@@ -464,8 +518,8 @@ def test_train_step_gpu_matches_cpu(cuda_device):
 @pytest.mark.parametrize("use_psp", [True, False])
 def test_segmentor_gpu_forward_matches_cpu(cuda_device, use_psp):
     """All 4 logit maps within MAE 1e-4 of the CPU forward (the plain
-    versions), and 5 kernel launches per forward (block4 and the tail of
-    the one decoder)."""
+    versions), and 8 kernel launches per forward (SEG_LAUNCHES: block2,
+    block4 and the tail of the one decoder)."""
     net_gpu = Segmentor(34, use_psp, device=cuda_device,
                         generator=torch.Generator().manual_seed(5)).eval()
     net_cpu = Segmentor(34, use_psp).eval()
@@ -475,7 +529,7 @@ def test_segmentor_gpu_forward_matches_cpu(cuda_device, use_psp):
     with torch.no_grad():
         got = net_gpu(x.to(cuda_device))
         ref = net_cpu(x)
-    assert fc.fused_conv3x3.launches == before + 5
+    assert fc.fused_conv3x3.launches == before + SEG_LAUNCHES
     assert len(got) == 4
     for k, (g, r) in enumerate(zip(got, ref)):
         assert g.shape == r.shape
@@ -737,6 +791,65 @@ def test_backward_kernels_at_the_512x640_sites(cuda_device, dtype, site):
         assert d.norm() < 1e-4 * ref.norm()
 
 
+# block2's post-concat ConvBlock at 192x640 (ResNet-18/34 widths): (name,
+# pad_mode, x NHWC at batch 1, Co, residual?); conv1's two halves are
+# input-channel slices of one [128, 256, 3, 3] weight, up half first
+BLOCK2_SITES = [("block2.post.conv1.up_half", "up2_reflect", (1, 12, 40, 128), 128, False),
+                ("block2.post.conv1.skip_half", "reflect", (1, 24, 80, 128), 128, True),
+                ("block2.post.conv2", "reflect", (1, 24, 80, 128), 128, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 12])
+@pytest.mark.parametrize("site", BLOCK2_SITES, ids=[s[0] for s in BLOCK2_SITES])
+def test_kernels_at_the_block2_sites(cuda_device, dtype, batch, site):
+    """The forward, dgrad and wgrad kernels at block2's three sites (128
+    input and output channels: two grids of 64 output-channel tiles in the
+    forward, two of 64 input-channel tiles in dgrad, 2 x 4 tiles of 64 x 32
+    channels in wgrad; 24 rows and 40 low-res columns against 16-row and
+    16-column tiles) at batch 1 and 12, against
+    their plain versions in f64 on the same (bf16-rounded) tensors, each
+    launched once, on its dtype's route.  Bars: the forward's of
+    test_kernel_matches_plain_f32 (f32 1e-4 + 1e-4|ref|) and
+    test_kernel_bf16_matches_f32_plain (2e-2), the backward's _bwd_close's
+    (wgrad sums 480 to 23040 products an entry here)."""
+    name, pad_mode, shape, co, with_res = site
+    g = torch.Generator().manual_seed(70 + batch + sum(shape))
+    _, h, w_, ci = shape
+    ho, wo = (h, w_) if pad_mode == "reflect" else (2 * h, 2 * w_)
+    x = torch.randn(batch, h, w_, ci, generator=g)
+    full = torch.randn(co, 2 * ci, 3, 3, generator=g) / (3 * (2 * ci) ** 0.5)
+    b = torch.randn(co, generator=g)
+    r = torch.randn(batch, ho, wo, co, generator=g) if with_res else None
+    gz = torch.randn(batch, ho, wo, co, generator=g)
+    x, full, b, gz = (t.to(cuda_device, dtype) for t in (x, full, b, gz))
+    r = None if r is None else r.to(cuda_device, dtype)
+    w = full[:, :ci] if name.endswith("up_half") else (
+        full[:, ci:] if name.endswith("skip_half") else full[:, :ci].contiguous())
+    act = "none" if name.endswith("up_half") else "elu"
+    before = (fc.fused_conv3x3.launches, fc.fused_conv3x3.bf16_launches, *_bwd_launches())
+    with torch.no_grad():
+        y = fc.fused_conv3x3(x, w, None if act == "none" else b, r, pad_mode=pad_mode,
+                             act=act)
+    gx = fc.fused_conv3x3_dgrad(gz, w, pad_mode=pad_mode)
+    gw = fc.fused_conv3x3_wgrad(gz, x, pad_mode=pad_mode)
+    torch.cuda.synchronize()
+    bf16 = int(dtype == torch.bfloat16)
+    after = (fc.fused_conv3x3.launches, fc.fused_conv3x3.bf16_launches, *_bwd_launches())
+    assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, bf16, 1, 1, bf16, bf16)
+    assert y.shape == (batch, ho, wo, co) and y.dtype == dtype
+    assert gx.shape == x.shape and gw.shape == w.shape and gw.is_contiguous()
+    d64 = [None if t is None else t.double() for t in (x, w, b, r)]
+    ref_y = fc.fused_conv3x3_plain(d64[0], d64[1], None if act == "none" else d64[2], d64[3],
+                                   pad_mode=pad_mode, act=act)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.double(), ref_y, atol=tol, rtol=tol)
+    _bwd_close(gx, fc.fused_conv3x3_dgrad_plain(gz.double(), w.double(), pad_mode=pad_mode),
+               "x", dtype)
+    _bwd_close(gw, fc.fused_conv3x3_wgrad_plain(gz.double(), x.double(), pad_mode=pad_mode),
+               "w", dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pad_mode", ["reflect", "up2_reflect"])
 @pytest.mark.parametrize("ci_lo,ci_hi,co", [(0, 3, 5), (5, 38, 17), (64, 128, 64), (0, 64, 70)])
@@ -792,11 +905,11 @@ def test_seg_train_step_gpu_matches_cpu(cuda_device, use_psp):
     """One seg train step of Segmentor-18 at 64x128 on the card against the
     same step on the CPU in f64 (see test_train_step_gpu_matches_cpu):
     losses 1e-5 + 1e-5|ref|, each gradient ||d||/||ref|| < 2e-2, BN running
-    stats 1e-5; 5 kernel launches."""
+    stats 1e-5; 8 kernel launches (SEG_LAUNCHES)."""
     batch = _seg_batch(2, 64, 128, 26)
     m_gpu, n_gpu, g_gpu, net_gpu = _seg_step(cuda_device, batch, use_psp=use_psp)
     m_cpu, n_cpu, g_cpu, net_cpu = _seg_step("cpu", batch, torch.float64, use_psp=use_psp)
-    assert (n_gpu, n_cpu) == ((5, 0), (0, 0))
+    assert (n_gpu, n_cpu) == ((SEG_LAUNCHES, 0), (0, 0))
     for k, v in m_cpu.items():
         if k != "lr":
             assert abs(m_gpu[k].item() - v.item()) <= 1e-5 + 1e-5 * abs(v.item()), k
@@ -810,7 +923,7 @@ def test_seg_train_step_gpu_matches_cpu(cuda_device, use_psp):
 
 
 def test_seg_bf16_step_runs_the_bf16_route(cuda_device):
-    """The mixed step on the card: 5 launches, all of the bf16 route; f32
+    """The mixed step on the card: 8 launches, all of the bf16 route; f32
     master params and gradients; losses within 1e-2 of the f32 step's from
     the same weights, and not equal to them; its gradient (cuDNN's bf16
     convs, the kernels' bf16 routes, the mixed BN's backward on CUDA) no
@@ -821,7 +934,7 @@ def test_seg_bf16_step_runs_the_bf16_route(cuda_device):
     batch = _seg_batch(2, 64, 128, 27)
     m32, n32, g32, _ = _seg_step(cuda_device, batch)
     m16, n16, g16, net = _seg_step(cuda_device, batch, compute=torch.bfloat16)
-    assert n32 == (5, 0) and n16 == (5, 5)
+    assert n32 == (SEG_LAUNCHES, 0) and n16 == (SEG_LAUNCHES, SEG_LAUNCHES)
     assert all(p.dtype == torch.float32 for p in net.parameters())
     assert g16.keys() == g32.keys()
     assert all(p.grad.dtype == torch.float32 for p in net.parameters() if p.grad is not None)
@@ -858,7 +971,7 @@ def _footprint_step(device, batch, dtype=torch.float32, compute="float32", heads
 
 def test_footprint_bf16_step_with_packed_heads_runs_the_bf16_route(cuda_device):
     """The FootprintNetwork's mixed step with both packed heads on the card:
-    10 launches, all of the bf16 route; f32 masters and gradients; losses
+    16 launches, all of the bf16 route; f32 masters and gradients; losses
     within 1e-2 of the f32 step's and not equal to them; its gradient no
     farther from an f64 CPU step than twice the CPU bf16 step's distance
     (the CPU path is held against the JAX package in
@@ -875,7 +988,7 @@ def test_footprint_bf16_step_with_packed_heads_runs_the_bf16_route(cuda_device):
     m32, n32, g32, _ = _footprint_step(cuda_device, batch)
     m_off, _, g_off, _ = _footprint_step(cuda_device, batch, heads=False)
     m16, n16, g16, net = _footprint_step(cuda_device, batch, compute="bfloat16")
-    assert n32 == (10, 0) and n16 == (10, 10)
+    assert n32 == (FP_LAUNCHES, 0) and n16 == (FP_LAUNCHES, FP_LAUNCHES)
     assert all(p.dtype == torch.float32 for p in net.parameters())
     assert all(p.grad.dtype == torch.float32 for p in net.parameters() if p.grad is not None)
     assert g16.keys() == g32.keys() == g_off.keys()
@@ -903,9 +1016,10 @@ def test_footprint_bf16_step_with_packed_heads_runs_the_bf16_route(cuda_device):
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 def test_train_steps_launch_the_backward_kernels(cuda_device, model, compute):
     """A train step's backward runs the dgrad and wgrad kernels once per
-    site: 10 each for the FootprintNetwork (5 sites x 2 decoders), 5 each
-    for the Segmentor, all on the bf16 route in the mixed step; the forward
-    kernel's 10 (5) launches are all in the forward."""
+    site: 16 each for the FootprintNetwork (8 sites x 2 decoders:
+    SITES_PER_DECODER), 8 each for the Segmentor, all on the bf16 route in
+    the mixed step; the forward kernel's 16 (8) launches are all in the
+    forward."""
     before = _bwd_launches()
     if model == "footprint":
         g = torch.Generator().manual_seed(29)
@@ -917,11 +1031,11 @@ def test_train_steps_launch_the_backward_kernels(cuda_device, model, compute):
                               "moving_object_mask")}}
         _, forward, _, _ = _footprint_step(cuda_device, batch, compute=compute,
                                            heads=compute == "bfloat16")
-        per = 10
+        per = FP_LAUNCHES
     else:
         _, forward, _, _ = _seg_step(cuda_device, _seg_batch(2, 64, 128, 29),
                                      compute=getattr(torch, compute))
-        per = 5
+        per = SEG_LAUNCHES
     bf16 = per if compute == "bfloat16" else 0
     assert forward == (per, bf16)
     assert tuple(a - b for a, b in zip(_bwd_launches(), before)) == (per, per, bf16, bf16)
@@ -1027,7 +1141,7 @@ def test_global_batch_norm_at_world_1_equals_f_batch_norm(nccl_world_1):
 
 def test_dp_step_at_world_1_runs_the_kernel(nccl_world_1):
     """A data-parallel FootprintNetwork-18 step (global BN, NCCL gradient
-    all-reduce) at world 1: 10 launches per forward, and the losses of the
+    all-reduce) at world 1: 16 launches per forward, and the losses of the
     plain step within 1e-5."""
     mesh = nccl_world_1
     g = torch.Generator().manual_seed(31)
@@ -1048,7 +1162,7 @@ def test_dp_step_at_world_1_runs_the_kernel(nccl_world_1):
                                       mesh if name == "dp" else None)
         before = fc.fused_conv3x3.launches
         metrics[name] = step(0, batch)
-        assert fc.fused_conv3x3.launches - before == 10
+        assert fc.fused_conv3x3.launches - before == FP_LAUNCHES
     for k, v in metrics["plain"].items():
         if k != "lr":
             assert torch.isfinite(metrics["dp"][k])
@@ -1065,23 +1179,21 @@ def _row_shards(t, spatial):
              (int(j > 0), int(j < spatial - 1))) for j in range(spatial)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("spatial", [2, 3])
-@pytest.mark.parametrize("site", ["up", "reflect", "residual"])
-def test_seam_sites_give_the_unsharded_rows(cuda_device, dtype, spatial, site):
+def _seam_rows(device, dtype, spatial, site, ci, co, rows, seed):
     """The kernel on row shards extended by their seam rows, those rows'
     outputs dropped (ops/fused_conv.py's ``halo``; the residual cropped to
-    the skip's extended rows), gives the unsharded kernel's rows; both at
-    the plain version's bars (f32 1e-4, bf16 2e-2 against the f32 plain
-    version of the bf16-rounded inputs)."""
-    g = torch.Generator().manual_seed(40 + spatial)
-    low = torch.randn(2, 8 * spatial, 40, 64, generator=g)
-    skip = torch.randn(2, 16 * spatial, 80, 64, generator=g)
-    w_up = torch.randn(32, 64, 3, 3, generator=g) / 24
-    w = torch.randn(32, 64, 3, 3, generator=g) / 24
-    b = torch.randn(32, generator=g)
-    params = [t.to(cuda_device, dtype) for t in (w_up, w, b)]
-    low, skip = low.to(cuda_device, dtype), skip.to(cuda_device, dtype)
+    the skip's extended rows), against the unsharded kernel and the f32
+    plain version of the same (bf16-rounded) inputs: a low-res input of
+    ``rows`` rows a shard and 40 columns, its skip twice that, ``ci`` ->
+    ``co`` channels; f32 bars 1e-4, bf16 2e-2."""
+    g = torch.Generator().manual_seed(seed)
+    low = torch.randn(2, rows * spatial, 40, ci, generator=g)
+    skip = torch.randn(2, 2 * rows * spatial, 80, ci, generator=g)
+    w_up = torch.randn(co, ci, 3, 3, generator=g) / (3 * ci ** 0.5)
+    w = torch.randn(co, ci, 3, 3, generator=g) / (3 * ci ** 0.5)
+    b = torch.randn(co, generator=g)
+    params = [t.to(device, dtype) for t in (w_up, w, b)]
+    low, skip = low.to(device, dtype), skip.to(device, dtype)
 
     def run(lo, lo_halo, sk, sk_halo, plain=False):
         f = fc.fused_conv3x3_plain if plain else fc.fused_conv3x3
@@ -1109,6 +1221,15 @@ def test_seam_sites_give_the_unsharded_rows(cuda_device, dtype, spatial, site):
     torch.testing.assert_close(got.float(), ref, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spatial", [2, 3])
+@pytest.mark.parametrize("site", ["up", "reflect", "residual"])
+def test_seam_sites_give_the_unsharded_rows(cuda_device, dtype, spatial, site):
+    """The kernel on row shards extended by their seam rows gives the
+    unsharded kernel's rows (_seam_rows), at block4's channels: 64 -> 32."""
+    _seam_rows(cuda_device, dtype, spatial, site, 64, 32, 8, 40 + spatial)
+
+
 def _grad_close(got, ref, leaf, dtype):
     """The fused wrappers' gradient bars in f32: a weight or bias gradient
     (a sum of some 10^4 products, which cuDNN adds in other orders on the
@@ -1120,28 +1241,26 @@ def _grad_close(got, ref, leaf, dtype):
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=tol, msg=leaf)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("spatial", [2, 3])
-@pytest.mark.parametrize("site", ["up", "reflect", "residual"])
-def test_seam_site_gradients_give_the_unsharded_gradients(cuda_device, dtype, spatial, site):
+def _seam_grads(device, dtype, spatial, site, ci, co, rows, seed):
     """The fused wrappers' gradients through the kernel on row shards
     extended by their seam rows, the seam rows' outputs dropped: the x, w,
     b and residual gradients, the shards' halo rows' gradients added back
     to the rows they were copied from (here by autograd through the slices
-    that made the shards) and w's and b's summed, are the unsharded
-    kernel's; the backward launches no forward kernel."""
-    g = torch.Generator().manual_seed(50 + spatial)
-    low = torch.randn(2, 8 * spatial, 40, 64, generator=g)
-    skip = torch.randn(2, 16 * spatial, 80, 64, generator=g)
-    res = torch.randn(2, 16 * spatial, 80, 32, generator=g)
-    w = torch.randn(32, 64, 3, 3, generator=g) / 24
-    b = torch.randn(32, generator=g)
-    cot = torch.randn(2, 16 * spatial, 80, 32, generator=g)
+    that made the shards) and w's and b's summed, against the unsharded
+    kernel's (_grad_close's bars); the backward launches no forward kernel.
+    Shapes as _seam_rows's."""
+    g = torch.Generator().manual_seed(seed)
+    low = torch.randn(2, rows * spatial, 40, ci, generator=g)
+    skip = torch.randn(2, 2 * rows * spatial, 80, ci, generator=g)
+    res = torch.randn(2, 2 * rows * spatial, 80, co, generator=g)
+    w = torch.randn(co, ci, 3, 3, generator=g) / (3 * ci ** 0.5)
+    b = torch.randn(co, generator=g)
+    cot = torch.randn(2, 2 * rows * spatial, 80, co, generator=g)
     leaves = {"x": low if site == "up" else skip, "w": w, "b": b}
     if site == "residual":
         leaves["residual"] = res
-    leaves = {k: v.to(cuda_device, dtype).requires_grad_() for k, v in leaves.items()}
-    cot = cot.to(cuda_device, dtype)
+    leaves = {k: v.to(device, dtype).requires_grad_() for k, v in leaves.items()}
+    cot = cot.to(device, dtype)
 
     def run(x, r, halo):
         if site == "up":
@@ -1171,13 +1290,33 @@ def test_seam_site_gradients_give_the_unsharded_gradients(cuda_device, dtype, sp
         _grad_close(got[leaf], want, leaf, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spatial", [2, 3])
+@pytest.mark.parametrize("site", ["up", "reflect", "residual"])
+def test_seam_site_gradients_give_the_unsharded_gradients(cuda_device, dtype, spatial, site):
+    """The seam sites' gradients are the unsharded kernel's (_seam_grads),
+    at block4's channels: 64 -> 32."""
+    _seam_grads(cuda_device, dtype, spatial, site, 64, 32, 8, 50 + spatial)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", ["up", "reflect", "residual"])
+def test_block2_seam_sites_at_world_2(cuda_device, dtype, site):
+    """Block2's sites on the row shards of a world of 2 at 192x640: a
+    12x40 low-res input (6 rows a shard), its 24x80 skip, 128 -> 128
+    channels; the rows (_seam_rows) and the gradients (_seam_grads) are the
+    unsharded kernel's."""
+    _seam_rows(cuda_device, dtype, 2, site, 128, 128, 6, 60)
+    _seam_grads(cuda_device, dtype, 2, site, 128, 128, 6, 61)
+
+
 def test_spatial_train_on_the_card_matches_one_process(cuda_device, tmp_path):
     """FootprintNetwork-18's and Segmentor-18's f32 train steps at 64x96,
     batch 4, in two ranks on the card over gloo, each on its 32 rows,
     against the same step in one process on the card: the loss terms
     within 1e-5 + 1e-5|ref|, each gradient leaf ||d||/||ref|| < 2e-2, BN
-    running stats within 1e-5, the replicas bitwise equal after Adam, 10
-    (5) launches a rank a step."""
+    running stats within 1e-5, the replicas bitwise equal after Adam, 16
+    (8) launches a rank a step: every site runs on each rank's rows."""
     from footprints_tpu_torch.parallel.dryrun import spawn
 
     from . import _torch_dp_worker as worker
@@ -1190,11 +1329,11 @@ def test_spatial_train_on_the_card_matches_one_process(cuda_device, tmp_path):
     masks = {k: (rng.rand(4, 64, 96) > 0.5).astype(np.float32)
              for k in ("visible_ground", "all_ground", "depth_mask", "moving_object_mask",
                        "labelled_pix")}
-    cases = {"footprint": (str(tmp_path / "fp.pt"), 10, {
+    cases = {"footprint": (str(tmp_path / "fp.pt"), FP_LAUNCHES, {
                  "image": image, "depth": (rng.rand(4, 64, 96) * 20).astype(np.float32),
                  "ground_depth": (rng.rand(4, 64, 96) * 15).astype(np.float32),
                  **{k: v for k, v in masks.items() if k != "labelled_pix"}}),
-             "segmentor": (str(tmp_path / "seg.pt"), 5, {
+             "segmentor": (str(tmp_path / "seg.pt"), SEG_LAUNCHES, {
                  "image": image, "ground_mask": masks["all_ground"],
                  "labelled_pix": masks["labelled_pix"]})}
     for model, (path, launches, batch) in cases.items():
@@ -1218,7 +1357,7 @@ def test_spatial_train_on_the_card_matches_one_process(cuda_device, tmp_path):
 def test_spatial_eval_on_the_card_matches_one_process(cuda_device, tmp_path):
     """FootprintNetwork-18's and Segmentor-18's eval steps at 64x96, batch
     2, in two ranks on the card over gloo, each on its 32 rows: the losses
-    of the one-process eval within 1e-5 + 1e-5|ref|, 10 launches per rank
+    of the one-process eval within 1e-5 + 1e-5|ref|, 16 launches per rank
     per eval forward, the '1/1' rows within MAE 1e-4."""
     from footprints_tpu_torch.parallel.dryrun import spawn
     from footprints_tpu_torch.preprocessing.segmentation import trainer as seg_trainer
@@ -1250,7 +1389,7 @@ def test_spatial_eval_on_the_card_matches_one_process(cuda_device, tmp_path):
     with torch.no_grad():
         out = fp.eval()(on_card["image"], scales=("1/1",))["1/1"].cpu().numpy()
     for r in ranks:
-        assert r["footprint"]["f32_launches"] == 10
+        assert r["footprint"]["f32_launches"] == FP_LAUNCHES
         for got, want in ((r["footprint"]["f32"], ref), (r["segmentor"], seg_ref)):
             assert sorted(got) == sorted(want)
             for k, v in want.items():

@@ -256,19 +256,23 @@ def test_artifact_loads_with_no_model_code(f32_artifact):
 
 def test_exported_graph_hands_the_op_its_layouts(f32_artifact):
     """Every kernel call in the program gets an NHWC-contiguous x and a
-    weight with strides (s, 9, 3, 1): block4's halves as input-channel
-    slice views of the [64, 128, 3, 3] weight."""
+    weight with strides (s, 9, 3, 1): the conv1 halves as input-channel
+    slice views of block2's [128, 256, 3, 3] and block4's [64, 128, 3, 3]
+    weights."""
     program = torch.export.load(f32_artifact[0])
     calls = [n for n in program.graph.nodes
              if n.target is torch.ops.footprints.fused_conv3x3.default]
-    assert len(calls) == 10  # 5 sites x 2 decoders
-    slices = 0
+    # 8 sites x 2 decoders: block2's and block4's post-concat ConvBlocks 3
+    # each, the tail's 2
+    assert len(calls) == 16
+    slices = {128: 0, 64: 0}
     for node in calls:
         x, w = (a.meta["val"] for a in node.args[:2])
         assert x.is_contiguous() and x.dim() == 4
         assert w.stride()[1:] == (9, 3, 1) and w.stride(0) >= 9 * w.shape[1]
-        slices += w.stride(0) == 9 * 128 and w.shape[1] == 64
-    assert slices == 4  # the up and skip halves, in each decoder
+        if w.stride(0) == 9 * 2 * w.shape[1]:
+            slices[w.shape[1]] += 1
+    assert slices == {128: 4, 64: 4}  # the up and skip halves, in each decoder
 
 
 @pytest.mark.parametrize("pad_mode", ["reflect", "up2_reflect"])

@@ -230,6 +230,61 @@ def test_block4_fused_matches_unfused():
                                    plain(x, skip).numpy(), atol=ATOL)
 
 
+def test_block2_fused_matches_jax_unfused_block():
+    """Block2 of a ResNet-18/34 decoder (256 -> 128 channels, skip 128) on
+    its fused path == the JAX up_concat_block at the same shapes, which runs
+    it unfused (``fast=False``: the skip's 24x80 map is below
+    ``_S2D_MIN_PIXELS``)."""
+    params, state = jblocks.init_up_concat_block_asym(jax.random.PRNGKey(3), 256, 128, 128)
+    rng = np.random.RandomState(11)
+    x = rng.randn(2, 12, 40, 256).astype(np.float32)
+    skip = rng.randn(2, 24, 80, 128).astype(np.float32)
+    ref, _ = jblocks.up_concat_block(params, state, jnp.asarray(x), jnp.asarray(skip),
+                                     train=False, fast=False)
+    block = ConvUpsampleAndConcatBlock(256, 128, 128, fused=True)
+    _load_conv_block(block.pre_concat_conv, params["pre"])
+    _load_conv_block(block.post_concat_conv, params["post"])
+    with torch.no_grad():
+        got = block(_nchw(x), _nchw(skip)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_block2_fused_matches_unfused_forward_and_gradients(dtype, tol):
+    """ConvUpsampleAndConcatBlock(128, 128, 128) at block2's layout (a 12x40
+    input, a 24x80 skip, batch 2): the fused path (the plain versions of
+    the kernel's three sites, their gradients through the op's registered
+    autograd) against the unfused block (upsample, concat, reflect pads,
+    F.conv2d), forward and the gradients of x, the skip and every weight and
+    bias.  Bars: ``tol`` + ``tol``|ref| for the output and the input
+    gradients; ``tol`` max|ref| + ``tol``|ref| for the weight and bias
+    gradients, each a sum of some 4000-8000 products added in another
+    order."""
+    torch.manual_seed(12)
+    fused = ConvUpsampleAndConcatBlock(128, 128, 128, fused=True).to(dtype)
+    plain = ConvUpsampleAndConcatBlock(128, 128, 128, fused=False).to(dtype)
+    plain.load_state_dict(fused.state_dict())
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(2, 12, 40, 128, generator=g, dtype=dtype)
+    skip = torch.randn(2, 24, 80, 128, generator=g, dtype=dtype)
+    cot = torch.randn(2, 24, 80, 128, generator=g, dtype=dtype)
+
+    def run(block):
+        xs, ss = (_nchw(t.numpy()).requires_grad_() for t in (x, skip))
+        y = block(xs, ss)
+        (y * cot.permute(0, 3, 1, 2)).sum().backward()
+        grads = {n: p.grad for n, p in block.named_parameters() if p.requires_grad}
+        return y.detach(), {"x": xs.grad, "skip": ss.grad, **grads}
+
+    got_y, got = run(fused)
+    ref_y, ref = run(plain)
+    torch.testing.assert_close(got_y, ref_y, atol=tol, rtol=tol)
+    assert got.keys() == ref.keys() and len(got) == 2 + 8
+    for k, want in ref.items():
+        atol = tol * want.abs().max().item() if k not in ("x", "skip") else tol
+        torch.testing.assert_close(got[k], want, atol=atol, rtol=tol, msg=k)
+
+
 @pytest.mark.parametrize("apply_sigmoid", [False, True])
 def test_decoder_tail_matches_jax_pallas_path(monkeypatch, apply_sigmoid):
     monkeypatch.setattr(pallas_conv, "pallas_supported", lambda *a, **k: True)

@@ -17,7 +17,7 @@ from footprints_tpu.train.checkpoint import save_checkpoint
 from footprints_tpu_torch.checkpoint import load_checkpoint
 from footprints_tpu_torch.convert import state_dict_from_jax_params
 from footprints_tpu_torch.model_manager import ModelManager
-from footprints_tpu_torch.models import SCALES, FootprintNetwork
+from footprints_tpu_torch.models import SCALES, FootprintNetwork, Segmentor
 from footprints_tpu_torch.ops import fused_conv3x3
 
 from . import torch_oracle
@@ -67,6 +67,19 @@ def test_serving_forward_computes_only_the_asked_scales():
     assert list(served) == ["1/1"]
     torch.testing.assert_close(served["1/1"], full["1/1"], rtol=0, atol=0)
     assert fused_conv3x3.launches == before  # CPU: plain versions, no kernel
+
+
+@pytest.mark.parametrize("depth", [18, 34, 50])
+def test_decoders_fuse_block2_and_block4_only(depth):
+    """Every SkipDecoder (both of a FootprintNetwork, the Segmentor's with
+    and without the PSP) runs the post-concat ConvBlocks of block2 and
+    block4 through the kernel, and leaves blocks 1 and 3 on cuDNN."""
+    fp = FootprintNetwork(depth)
+    decoders = [fp.mask_decoder, fp.depth_decoder, Segmentor(depth, True).decoder,
+                Segmentor(depth, False).decoder]
+    for decoder in decoders:
+        assert [getattr(decoder, f"block{i}").fused for i in range(1, 5)] == [
+            False, True, False, True]
 
 
 def test_forward_keeps_channels_last_activations():

@@ -22,7 +22,10 @@ Tolerances:
     Measured: both packages' f32 gradients sit within 1e-4 of an f64 port
     step at every leaf (worst ~1e-5 on this input).
   * bf16 (PSP on), bars at about twice the worst measured here: loss terms
-    5e-6 (worst 2.4e-6); BN running stats 2e-2 (worst 9.5e-3, running
+    5e-6 from JAX's f32 step's (the port's worst 2.56e-6; JAX's f32 step
+    sits 1.1e-7 from an f64 step, JAX's bf16 step up to 1.06e-5 from it), and
+    more than 1e-6 from the port's f32 step's somewhere (the bf16 casts ran);
+    BN running stats 2e-2 (worst 9.5e-3, running
     variances of bf16 activations); the whole gradient (all leaves as one
     vector) ||d||/||ref|| < 0.1 (0.041); each leaf < 0.75 (worst 0.380,
     encoder.layer4[0].down_conv.w).  The leaf bar is above 0.1 because at
@@ -208,10 +211,21 @@ def test_f32_step_adam_update_matches_optax(psp):
 # --- bf16 mixed precision -----------------------------------------------------
 
 def test_bf16_step_losses_and_bn_state_match_jax():
-    _, _, (_, jstate, jlosses), (metrics, net, _), _ = _steps(True, True)
+    """The loss terms within 5e-6 of JAX's f32 step's, and not the port's
+    f32 step's (a step that skipped the bf16 casts sits within 1e-7 of
+    it); the BN running stats within 2e-2 of JAX's bf16 step's.  JAX's f32
+    step stands for the exact step: block2's post-concat conv1 rounds apart
+    in bf16 here (the fused path's up half and skip half, as block4's) and
+    once in JAX (unfused at this size), so the two bf16 steps no longer
+    round alike at the 1/8-scale head, where JAX's bf16 loss sits 1.06e-5
+    from the exact one and the port's 2.45e-6."""
+    _, _, (_, jstate, _), (metrics, net, _), _ = _steps(True, True)
+    jlosses = _steps(True, False)[2][2]
+    f32 = _steps(True, False)[3][0]
     for k, v in jlosses.items():
         assert metrics[k].dtype == torch.float32
         np.testing.assert_allclose(metrics[k].item(), float(v), atol=5e-6, rtol=0, err_msg=k)
+    assert max(abs(metrics[k].item() - f32[k].item()) for k in jlosses) > 1e-6
     for a, b in zip(jax.tree.leaves(_bn_state(net, True)), jax.tree.leaves(jstate)):
         assert a.dtype == np.float32 and np.asarray(b).dtype == np.float32
         np.testing.assert_allclose(a, b, atol=2e-2, rtol=0)
