@@ -10,6 +10,19 @@ per-layer metric is read by ``metrics/<name>.py``, or, where that file does
 not exist, by ``metrics/<name up to its first dot>.py``.  Adding a cell of an
 existing kind takes a traffic file, a limits file and an entry in
 ``BENCHMARK.json``.
+
+Adding a configuration takes, as new files alone:
+
+- ``configs/<config>.json``, whose ``"reference": "<module>:<function>"``
+  names its plain reference;
+- ``reference/<module>.py``, whose ``<function>(config)`` returns that
+  reference as a plain ``nn.Module`` (state-dict keys as the program's; it
+  may build on ``reference/models.py``'s decoders);
+- ``limits/<cell>.json`` for each of its cells;
+- its entries in ``BENCHMARK.json``: the configuration and its cells.
+
+The FLOPs (``flops.py``) and the fused kernel's sites are read from that
+reference's own shapes.
 """
 
 import dataclasses
@@ -111,14 +124,18 @@ def rng(seed, tag):
     return np.random.default_rng(subseed(seed, tag))
 
 
-def reference_model(config, device="meta"):
-    """The plain reference of the configuration (``reference/models.py``)."""
-    from reference import models
-
+def reference_model(config, device="meta", reference_dir=os.path.join(HERE, "reference")):
+    """The plain reference of the configuration, built on ``device``: the
+    function that its ``"reference": "<module>:<function>"`` names in
+    ``reference_dir/<module>.py``, called with the configuration."""
+    if "reference" not in config:
+        raise KeyError(f"configs/{config.get('name')}.json names no plain reference: "
+                       'give it "reference": "<module>:<function>"')
+    module, function = config["reference"].split(":")
+    build = getattr(load_module(os.path.join(reference_dir, f"{module}.py"),
+                                f"portbench_reference_{module}"), function)
     with torch.device(device):
-        if config["model"] == "FootprintNetwork":
-            return models.FootprintNetwork()
-        return models.Segmentor(use_psp=config["use_psp"])
+        return build(config)
 
 
 def seeded_weights(config, seed, device):

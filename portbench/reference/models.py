@@ -8,6 +8,11 @@ the port's, so both sides load one seeded state dict.  Inputs are NCHW in
 [0, 1]; every conv is ``nn.Conv2d`` (cuDNN on the card, with TF32 as the
 caller sets it), the decoders' nearest x2 upsample is materialised, and
 every head at every scale is computed.  It imports nothing of the port.
+
+A configuration names its builder as ``"reference": "models:<function>"``
+(``footprint_network``, ``segmentor``).  The decoders and both networks take
+the encoder's five feature widths, ResNet-34's by default, so a reference
+for another encoder defines the encoder alone and builds on these.
 """
 
 
@@ -45,8 +50,13 @@ def _stage(c_in, c_out, n_blocks, stride):
     return nn.Sequential(*layers)
 
 
+# widths of ResNet-18/34's five features, at 1/2 ... 1/32 of the input
+RESNET34_CHANNELS = (64, 64, 128, 256, 512)
+
+
 class ResnetEncoder(nn.Module):
-    """5-stage feature extractor with the reference's wrapping/naming."""
+    """ResNet-34's 5-stage feature extractor with the reference's
+    wrapping/naming."""
 
     def __init__(self):
         super().__init__()
@@ -87,10 +97,13 @@ class ConvBlock(nn.Module):
 
 
 class ConvUpsampleAndConcatBlock(nn.Module):
-    def __init__(self, in_ch, out_ch):
+    """The post-concat conv takes ``out_ch`` upsampled channels, then
+    ``skip_ch`` of the skip (``out_ch`` unless given)."""
+
+    def __init__(self, in_ch, out_ch, skip_ch=None):
         super().__init__()
         self.pre_concat_conv = ConvBlock(in_ch, out_ch)
-        self.post_concat_conv = ConvBlock(out_ch * 2, out_ch)
+        self.post_concat_conv = ConvBlock(out_ch + (skip_ch or out_ch), out_ch)
 
     def forward(self, x, skip):
         x = self.pre_concat_conv(x)
@@ -117,13 +130,19 @@ class OutConvBlock(nn.Module):
         return x
 
 
+def _decoder_blocks(decoder, in_ch, enc_channels):
+    """block1..block4: 256, 128, 64, 64 channels, each over the next
+    shallower feature as its skip."""
+    skips = enc_channels[-2::-1]
+    for i, (out_ch, skip_ch) in enumerate(zip((256, 128, 64, 64), skips), 1):
+        setattr(decoder, f"block{i}", ConvUpsampleAndConcatBlock(in_ch, out_ch, skip_ch))
+        in_ch = out_ch
+
+
 class SkipDecoder(nn.Module):
-    def __init__(self, apply_sigmoid):
+    def __init__(self, apply_sigmoid, enc_channels=RESNET34_CHANNELS):
         super().__init__()
-        self.block1 = ConvUpsampleAndConcatBlock(512, 256)
-        self.block2 = ConvUpsampleAndConcatBlock(256, 128)
-        self.block3 = ConvUpsampleAndConcatBlock(128, 64)
-        self.block4 = ConvUpsampleAndConcatBlock(64, 64)
+        _decoder_blocks(self, enc_channels[-1], enc_channels)
         self.outconv1 = OutConvBlock(128, 2, 8, apply_sigmoid)
         self.outconv2 = OutConvBlock(64, 2, 4, apply_sigmoid)
         self.outconv3 = OutConvBlock(64, 2, 2, apply_sigmoid)
@@ -146,11 +165,11 @@ class SkipDecoder(nn.Module):
 
 
 class FootprintNetwork(nn.Module):
-    def __init__(self):
+    def __init__(self, encoder=None, enc_channels=RESNET34_CHANNELS):
         super().__init__()
-        self.encoder = ResnetEncoder()
-        self.mask_decoder = SkipDecoder(apply_sigmoid=False)
-        self.depth_decoder = SkipDecoder(apply_sigmoid=True)
+        self.encoder = ResnetEncoder() if encoder is None else encoder
+        self.mask_decoder = SkipDecoder(False, enc_channels)
+        self.depth_decoder = SkipDecoder(True, enc_channels)
 
     def forward(self, x):
         feats = self.encoder(x)
@@ -174,12 +193,12 @@ class PSPBlock(nn.Module):
 
 
 class PSP(nn.Module):
-    def __init__(self):
+    def __init__(self, feats):
         super().__init__()
-        self.block1 = PSPBlock(1, 512)
-        self.block2 = PSPBlock(2, 512)
-        self.block3 = PSPBlock(4, 512)
-        self.block4 = PSPBlock(6, 512)
+        self.block1 = PSPBlock(1, feats)
+        self.block2 = PSPBlock(2, feats)
+        self.block3 = PSPBlock(4, feats)
+        self.block4 = PSPBlock(6, feats)
 
     def forward(self, x):
         p1, p2, p4, p6 = self.block1(x), self.block2(x), self.block3(x), self.block4(x)
@@ -187,16 +206,13 @@ class PSP(nn.Module):
 
 
 class SegSkipDecoder(nn.Module):
-    def __init__(self, use_psp):
+    def __init__(self, use_psp, enc_channels=RESNET34_CHANNELS):
         super().__init__()
         self.use_PSP = use_psp
+        c4 = enc_channels[-1]
         if use_psp:
-            self.PSP = PSP()
-        in_ch = 1024 if use_psp else 512
-        self.block1 = ConvUpsampleAndConcatBlock(in_ch, 256)
-        self.block2 = ConvUpsampleAndConcatBlock(256, 128)
-        self.block3 = ConvUpsampleAndConcatBlock(128, 64)
-        self.block4 = ConvUpsampleAndConcatBlock(64, 64)
+            self.PSP = PSP(c4)
+        _decoder_blocks(self, 2 * c4 if use_psp else c4, enc_channels)
         self.outconv1 = OutConvBlock(128, 1)
         self.outconv2 = OutConvBlock(64, 1)
         self.outconv3 = OutConvBlock(64, 1)
@@ -220,10 +236,28 @@ class SegSkipDecoder(nn.Module):
 
 
 class Segmentor(nn.Module):
-    def __init__(self, use_psp=True):
+    def __init__(self, use_psp=True, encoder=None, enc_channels=RESNET34_CHANNELS):
         super().__init__()
-        self.encoder = ResnetEncoder()
-        self.decoder = SegSkipDecoder(use_psp)
+        self.encoder = ResnetEncoder() if encoder is None else encoder
+        self.decoder = SegSkipDecoder(use_psp, enc_channels)
 
     def forward(self, x):
         return self.decoder(self.encoder(x))
+
+
+def _resnet34(config):
+    if config["encoder_depth"] != 34:
+        raise ValueError(f"{config['name']}: this reference's encoder is ResNet-34, "
+                         f"not ResNet-{config['encoder_depth']}")
+
+
+def footprint_network(config):
+    """The FootprintNetwork of ``config``: ResNet-34, two SkipDecoders."""
+    _resnet34(config)
+    return FootprintNetwork()
+
+
+def segmentor(config):
+    """The Segmentor of ``config``: ResNet-34, PSP as ``use_psp`` says."""
+    _resnet34(config)
+    return Segmentor(use_psp=config["use_psp"])

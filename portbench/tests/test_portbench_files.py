@@ -48,8 +48,13 @@ def test_config_files(config):
     for key in config["reduced"]:
         assert NAME.match(key) and key in data and key in data["source_values"]
     assert any(w["config"] == config["name"] for w in BENCH["workloads"])
+    module = data["reference"].split(":")[0]
+    assert os.path.exists(os.path.join(harness.HERE, "reference", f"{module}.py"))
     model = harness.reference_model(data)
     assert sum(p.numel() for p in model.parameters()) == data["parameters"]
+    without = {k: v for k, v in data.items() if k != "reference"}
+    with pytest.raises(KeyError, match=f"configs/{config['name']}.json"):
+        harness.reference_model(without)
 
 
 @pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])

@@ -59,7 +59,7 @@ def test_readers_on_a_trace():
     assert math.isclose(read("device_idle_pct.dump"), 100 * (1 - 52 / 100))
     assert read("kernels_per_img.predict") == 1.5
     bound = harness.load_module(f"{harness.HERE}/flops.py", "f").fused_bound_s(
-        12, 192, 640, 2, "float32", False)
+        harness.reference_model(cell.config), 12, 192, 640, "float32", False)
     assert math.isclose(read("fused_conv3x3_roofline.dump"), 100 * bound / 12 * 2 / 10e-9)
     # nothing of the kernel traced: no roofline
     m.trace.device = device[:2]
