@@ -35,6 +35,7 @@ import torch.nn as nn
 from ..ops.fused_conv import (conv_reflect_fused, conv_reflect_res_fused,
                               crop_rows, up_conv_fused)
 from ..parallel.halo import exchange_rows, row_mesh, seam_rows
+from ..telemetry import span
 from .layers import (conv2d, elu, reflect_pad, sigmoid, upsample_bilinear,
                      upsample_nearest)
 
@@ -92,6 +93,9 @@ class ConvUpsampleAndConcatBlock(nn.Module):
     rest, so neither the upsampled, the concatenated nor the padded tensor
     exists; then conv2.  3 launches: the up-conv, the skip's conv with the
     bias, the up-conv as its residual and ELU, and conv2 with ELU.
+
+    On either route, what follows the pre-concat ConvBlock is the span
+    ``decoder.post_concat``, timed on the card while tracing.
     """
 
     def __init__(self, in_ch, out_ch, skip_ch=None, *, fused=False):
@@ -102,9 +106,12 @@ class ConvUpsampleAndConcatBlock(nn.Module):
 
     def forward(self, x, skip):
         x = self.pre_concat_conv(x)
-        if not self.fused:
-            x = torch.cat([upsample_nearest(x, 2), skip], 1)
-            return self.post_concat_conv(x)
+        with span("decoder.post_concat", device=x.device):
+            if not self.fused:
+                return self.post_concat_conv(torch.cat([upsample_nearest(x, 2), skip], 1))
+            return self._fused_post_concat(x, skip)
+
+    def _fused_post_concat(self, x, skip):
         c_up = x.shape[1]
         conv1 = self.post_concat_conv.conv1
         conv2 = self.post_concat_conv.conv2

@@ -22,6 +22,7 @@ convs are pixel-local.
 import torch.nn as nn
 
 from ..parallel.halo import row_mesh
+from ..telemetry import span
 from . import init as nn_init
 from .layers import batch_norm, conv2d, max_pool_3x3_s2, relu
 
@@ -132,14 +133,17 @@ class ResnetEncoder(nn.Module):
                 nn_init.batchnorm_(m)
 
     def forward(self, x):
-        """x: NCHW in [0,1].  Returns the 5 feature maps (NCHW)."""
+        """x: NCHW in [0,1].  Returns the 5 feature maps (NCHW).  Each
+        residual stage is the span ``encoder.layer<i>`` (the first after
+        the max-pool), timed on the card while tracing."""
         x = (x - 0.45) / 0.225
         x = relu(_bn(_conv(self.layer0[0], x), self.layer0[1]))
         features = [x]
         x = max_pool_3x3_s2(x, row_mesh(self))
         stages = (self.layer1[1], self.layer2, self.layer3, self.layer4)
-        for stage in stages:
-            for blk in stage:
-                x = blk(x)
+        for i, stage in enumerate(stages, 1):
+            with span(f"encoder.layer{i}", device=x.device):
+                for blk in stage:
+                    x = blk(x)
             features.append(x)
         return features

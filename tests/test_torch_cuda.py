@@ -791,12 +791,14 @@ def test_backward_kernels_at_the_512x640_sites(cuda_device, dtype, site):
         assert d.norm() < 1e-4 * ref.norm()
 
 
-# block2's post-concat ConvBlock at 192x640 (ResNet-18/34 widths): (name,
+# block2's post-concat ConvBlock at 192x640 (ResNet-18/34 widths, and
+# ResNet-50's skip half over the 1/8 feature's 512 channels): (name,
 # pad_mode, x NHWC at batch 1, Co, residual?); conv1's two halves are
-# input-channel slices of one [128, 256, 3, 3] weight, up half first
+# input-channel slices of one [128, 128 + skip, 3, 3] weight, up half first
 BLOCK2_SITES = [("block2.post.conv1.up_half", "up2_reflect", (1, 12, 40, 128), 128, False),
                 ("block2.post.conv1.skip_half", "reflect", (1, 24, 80, 128), 128, True),
-                ("block2.post.conv2", "reflect", (1, 24, 80, 128), 128, False)]
+                ("block2.post.conv2", "reflect", (1, 24, 80, 128), 128, False),
+                ("block2.post.conv1.skip_half.resnet50", "reflect", (1, 24, 80, 512), 128, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -807,7 +809,9 @@ def test_kernels_at_the_block2_sites(cuda_device, dtype, batch, site):
     input and output channels: two grids of 64 output-channel tiles in the
     forward, two of 64 input-channel tiles in dgrad, 2 x 4 tiles of 64 x 32
     channels in wgrad; 24 rows and 40 low-res columns against 16-row and
-    16-column tiles) at batch 1 and 12, against
+    16-column tiles), and at ResNet-50's skip half (512 input channels: 8
+    of 64 in the forward's K loop and in dgrad's tiles, 4x wgrad's output
+    tiles; a slice view of a weight 640 channels wide) at batch 1 and 12, against
     their plain versions in f64 on the same (bf16-rounded) tensors, each
     launched once, on its dtype's route.  Bars: the forward's of
     test_kernel_matches_plain_f32 (f32 1e-4 + 1e-4|ref|) and
@@ -818,14 +822,14 @@ def test_kernels_at_the_block2_sites(cuda_device, dtype, batch, site):
     _, h, w_, ci = shape
     ho, wo = (h, w_) if pad_mode == "reflect" else (2 * h, 2 * w_)
     x = torch.randn(batch, h, w_, ci, generator=g)
-    full = torch.randn(co, 2 * ci, 3, 3, generator=g) / (3 * (2 * ci) ** 0.5)
+    full = torch.randn(co, co + ci, 3, 3, generator=g) / (3 * (co + ci) ** 0.5)
     b = torch.randn(co, generator=g)
     r = torch.randn(batch, ho, wo, co, generator=g) if with_res else None
     gz = torch.randn(batch, ho, wo, co, generator=g)
     x, full, b, gz = (t.to(cuda_device, dtype) for t in (x, full, b, gz))
     r = None if r is None else r.to(cuda_device, dtype)
     w = full[:, :ci] if name.endswith("up_half") else (
-        full[:, ci:] if name.endswith("skip_half") else full[:, :ci].contiguous())
+        full[:, co:] if "skip_half" in name else full[:, :ci].contiguous())
     act = "none" if name.endswith("up_half") else "elu"
     before = (fc.fused_conv3x3.launches, fc.fused_conv3x3.bf16_launches, *_bwd_launches())
     with torch.no_grad():
@@ -1434,7 +1438,8 @@ def test_span_device_ms_on_the_card(cuda_device, work):
         def fn():
             with torch.no_grad():
                 net(x)
-        names = ("encoder", "decoder")
+        names = ("encoder", "decoder", "encoder.layer1", "encoder.layer2", "encoder.layer3",
+                 "encoder.layer4", "decoder.post_concat")
     else:
         from footprints_tpu_torch.model_manager import ModelManager
 

@@ -250,23 +250,27 @@ def test_block2_fused_matches_jax_unfused_block():
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
-def test_block2_fused_matches_unfused_forward_and_gradients(dtype, tol):
-    """ConvUpsampleAndConcatBlock(128, 128, 128) at block2's layout (a 12x40
-    input, a 24x80 skip, batch 2): the fused path (the plain versions of
-    the kernel's three sites, their gradients through the op's registered
-    autograd) against the unfused block (upsample, concat, reflect pads,
-    F.conv2d), forward and the gradients of x, the skip and every weight and
-    bias.  Bars: ``tol`` + ``tol``|ref| for the output and the input
-    gradients; ``tol`` max|ref| + ``tol``|ref| for the weight and bias
-    gradients, each a sum of some 4000-8000 products added in another
-    order."""
+@pytest.mark.parametrize("skip_ch", [128, 512])
+def test_block2_fused_matches_unfused_forward_and_gradients(skip_ch, dtype, tol):
+    """ConvUpsampleAndConcatBlock(128, 128, skip_ch) at block2's layout (a
+    12x40 input, a 24x80 skip, batch 2; the skip 128 channels wide under
+    ResNet-18/34, 512 under ResNet-50): the fused path (the plain versions
+    of the kernel's three sites, their gradients through the op's
+    registered autograd) against the unfused block (upsample, concat,
+    reflect pads, F.conv2d), forward and the gradients of x, the skip and
+    every weight and bias.  Bars: ``tol`` + ``tol``|ref| for the output and
+    the input gradients; ``tol`` max|ref| + ``tol``|ref| for the weight and
+    bias gradients, each a sum of some 4000-8000 products added in another
+    order.  The 512-wide skip sums 4x the products in conv1's skip half;
+    the default init scales its weights by 1/sqrt(fan_in), so the sums
+    keep their size and the bars hold as they are."""
     torch.manual_seed(12)
-    fused = ConvUpsampleAndConcatBlock(128, 128, 128, fused=True).to(dtype)
-    plain = ConvUpsampleAndConcatBlock(128, 128, 128, fused=False).to(dtype)
+    fused = ConvUpsampleAndConcatBlock(128, 128, skip_ch, fused=True).to(dtype)
+    plain = ConvUpsampleAndConcatBlock(128, 128, skip_ch, fused=False).to(dtype)
     plain.load_state_dict(fused.state_dict())
     g = torch.Generator().manual_seed(13)
     x = torch.randn(2, 12, 40, 128, generator=g, dtype=dtype)
-    skip = torch.randn(2, 24, 80, 128, generator=g, dtype=dtype)
+    skip = torch.randn(2, 24, 80, skip_ch, generator=g, dtype=dtype)
     cot = torch.randn(2, 24, 80, 128, generator=g, dtype=dtype)
 
     def run(block):

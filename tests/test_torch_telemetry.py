@@ -227,6 +227,27 @@ def test_train_step_records_its_phases_in_order():
     assert all(s.device_ms is None for s in telemetry.spans())  # no events on the CPU
 
 
+@pytest.mark.parametrize("depth", [18, 50])
+def test_forward_records_the_encoder_stages_and_post_concat_blocks(depth):
+    """A FootprintNetwork forward records 12 spans inside its model spans:
+    ``encoder.layer1`` ... ``encoder.layer4`` in ``encoder``, and one
+    ``decoder.post_concat`` a decoder block in each ``decoder``, on the
+    fused route (blocks 2 and 4) as on cuDNN's (blocks 1 and 3)."""
+    net = FootprintNetwork(depth).eval()
+    with torch.no_grad():
+        traced(lambda: net(torch.rand(1, H, W, 3)))
+    encoder = named("encoder")
+    decoders = named("decoder")
+    stages = named(*(f"encoder.layer{i}" for i in range(1, 5)))
+    posts = named("decoder.post_concat")
+    assert [s.name for s in stages] == [f"encoder.layer{i}" for i in range(1, 5)]
+    assert all(s.parent == encoder[0].id for s in stages)
+    assert len(posts) == 8 and len(decoders) == 2
+    for d in decoders:
+        assert sum(s.parent == d.id for s in posts) == 4
+    assert telemetry.totals()["decoder.post_concat"].count == 8
+
+
 def test_predict_records_its_call_forward_and_fetch(tmp_path):
     manager = ModelManager(is_inference=True, depth=18, device="cpu")
 
