@@ -9,17 +9,17 @@ final result line:
   1. device   torch and CUDA versions, the card's name and power limit;
   2. build    nvcc-builds the CUDA kernels from footprints_tpu_torch/csrc/;
   3. sites    holds fused_conv3x3 against its plain PyTorch version at the
-              8 decoder sites of the kitti 192x640 forward, batch 4, in f32
+              10 decoder sites of the kitti 192x640 forward, batch 4, in f32
               (atol = rtol = 1e-4, TF32 off on both sides: 576-term dot
               products summed in another order) and bf16 (2e-2 against the
               f32 plain version on the same bf16-rounded inputs: the output
-              is rounded to bf16), and at the 8 sites of the Matterport
+              is rounded to bf16), and at the 10 sites of the Matterport
               dump's 512x640 forward, batch 4, in f32;
   4. main     writes a seeded FootprintNetwork-34 as model.pth and serves
               it through footprints_tpu_torch.predict_simple on the GPU: one
               image, then folder mode over test_data/, each run again with
               --device cpu.  Checks each .npy is a finite [4,192,640] map
-              within MAE 1e-4 of its CPU twin, that the kernel ran 16 times
+              within MAE 1e-4 of its CPU twin, that the kernel ran 20 times
               per GPU batch, and that the GPU forward matches the CPU forward
               (MAE < 1e-4 at every scale);
   5. times    at each site, the mean time per call over 20 eager calls
@@ -40,7 +40,7 @@ final result line:
   6. profile  torch.profiler device time by kernel over the batch-16
               forward, the idle share, and the full table in
               smoke_out/profile_b16.json; checks the forward's two device
-              kernels (the pre-pack and the main kernel) ran 16 times each
+              kernels (the pre-pack and the main kernel) ran 20 times each
               per forward;
   7. train    trains FootprintNetwork-34 at 192x640, batch 12, through
               footprints_tpu_torch.main on a synthetic KITTI tree of
@@ -51,10 +51,10 @@ final result line:
               at step 0, 'exact' compact transport.  Checks every logged
               loss is finite, weights_0/checkpoint.npz holds step 4, a
               second TrainManager resumes step 4 and the Adam moments, and
-              the kernel ran 16 times per training forward and per
-              validation forward, the dgrad and wgrad kernels 16 times each
+              the kernel ran 20 times per training forward and per
+              validation forward, the dgrad and wgrad kernels 20 times each
               per step (the same counts in every rank of phases dp and
-              spatial, 8 for the Segmentor in every training phase).
+              spatial, 10 for the Segmentor in every training phase).
               Then one GPU step against one CPU step
               in f64 from the same weights and batch (batch 2, 192x640, the
               first validation samples): each loss term within
@@ -100,7 +100,7 @@ final result line:
               resident per SM; the launch counters do not move;
   8b. train_bf16  on phase 7's data, main --mode train --compute_dtype
               bfloat16 (the packed heads on by 'auto'): 4 steps and the
-              step-0 validation, 80 launches all on the bf16 route, f32
+              step-0 validation, 100 launches all on the bf16 route, f32
               masters and checkpoint, the packed '@s2d'/'@s2d2' targets on
               the card batch, and a resume; at batch 2 on a seeded noise
               batch, the GPU bf16 step's gradient no farther from an f64
@@ -121,14 +121,14 @@ final result line:
   8d. dp     data parallelism (footprints_tpu_torch/parallel/), on phase 7's
               tree and batch: (a) python -m torch.distributed.run
               --standalone --nproc_per_node=1 -m footprints_tpu_torch.main
-              --mode train (NCCL, world 1) at batch 12: 80 launches (read
+              --mode train (NCCL, world 1) at batch 12: 100 launches (read
               from the rank's last line), a finite logged loss,
               weights_0/checkpoint.npz at step 4 written once and resumed
               by a plain TrainManager; (b) dryrun_multichip(2,
               device='cuda'): two ranks on the one card over gloo, one f32
               step and one bf16 packed-head step of FootprintNetwork-34 at
               192x640, 2 images a rank, replicas bitwise equal after each,
-              16 launches per rank per forward (the bf16 ones on the bf16
+              20 launches per rank per forward (the bf16 ones on the bf16
               route); (c) on phase 8b's batch-2 noise batch, the world-1
               (NCCL) and world-2 (gloo, 1 image a rank) DP steps against
               the f64 CPU step of phase 8b at phase 7's bars, the
@@ -146,11 +146,11 @@ final result line:
               10), noise batches: (a) FootprintNetwork-34 at 192x640,
               batch 4, 2 row shards: the f32 eval losses on every rank
               within 1e-5 + 1e-5|ref| of the single-process eval on the
-              card, the gathered '1/1' map within MAE 1e-4, 16 launches a
+              card, the gathered '1/1' map within MAE 1e-4, 20 launches a
               rank a forward; the bf16 eval with the packed heads no
               farther from the f32 eval than twice the single process's
-              bf16 eval + 1e-3, 16 bf16-route launches a rank; (b)
-              Segmentor-34 (PSP), the same at 8 launches (one world of 2
+              bf16 eval + 1e-3, 20 bf16-route launches a rank; (b)
+              Segmentor-34 (PSP), the same at 10 launches (one world of 2
               with (a)); (c) FootprintNetwork-34 at 512x640, batch 2, 4 row
               shards (middle ranks with a seam on each side), as (a).  In
               each, every kernel call of the main path (on the rank's rows
@@ -168,8 +168,8 @@ final result line:
               process on the card: f32 losses within 1e-5 + 1e-5|ref|,
               each gradient leaf before Adam ||d||/||ref|| < 2e-2 (worst
               printed), BN running stats within 1e-5, the replicas bitwise
-              equal over the ranks after Adam, 16 (8) launches a rank in
-              the forward and none in the backward, 16 (8) of each backward
+              equal over the ranks after Adam, 20 (10) launches a rank in
+              the forward and none in the backward, 20 (10) of each backward
               kernel a rank; bf16 no farther from
               the one-process f32 step than twice the one-process bf16
               step, plus 1e-3 at a loss term and 2^-8 at a gradient leaf.
@@ -181,13 +181,13 @@ final result line:
               torch.export program with the kernel as the custom op
               footprints::fused_conv3x3): a bf16 batch-16 artifact served
               over test_data/ through predict_simple --artifact (each .npy a
-              finite [4,192,640] map; 16 launches per batch, all bf16); a
+              finite [4,192,640] map; 20 launches per batch, all bf16); a
               bf16 batch-2 artifact on the card and on the CPU, each against
               the live f32 forward on its device (per-channel MAE: the card's
               at most twice the CPU's + 1e-3); an f32 batch-2 artifact
               within MAE 1e-4 of the live f32 forward; a seeded Segmentor-34
               (PSP) bf16 artifact at batch 12 through predict_simple's
-              manager (8 bf16 launches) against the live f32 Tester.forward
+              manager (10 bf16 launches) against the live f32 Tester.forward
               on the same frames, under the same rule.  Each export's wall
               time, size and count of ATen calls in its graph;
   8f. export_times  the bf16 artifact's imgs/s at batch 16 and p50 at
@@ -206,7 +206,7 @@ final result line:
               PyYAML import, the real dataset; otherwise InferenceManager
               over in-memory images with the same {'image', 'idx'} contract
               and save_result, and the route says so.  Checks the 26 files
-              (float16 [4,192,640], finite, sigmoid channels in [0,1]), 10
+              (float16 [4,192,640], finite, sigmoid channels in [0,1]), 20
               launches per batch, the first batch against a --device cpu
               run (2e-3 + 2e-3|cpu|), and the overlapped dump byte-identical
               to the serial one.  Then a Matterport dump at 512x640 (6
@@ -226,7 +226,7 @@ final result line:
  10. seg_dump the same for a seeded Segmentor-34 with PSP through
               footprints_tpu_torch.preprocessing.segmentation.main --mode
               inference over the sorted train+val split of the same 26
-              frames: the ground_seg tree (float16 [1,192,640] in [0,1]), 5
+              frames: the ground_seg tree (float16 [1,192,640] in [0,1]), 10
               launches per batch, overlap byte-identical to serial, the GPU
               forward against the CPU forward at every scale (MAE < 1e-4),
               times and profile at batch 12 and 16;
@@ -238,7 +238,7 @@ final result line:
               and PyYAML import; otherwise the Trainer on in-memory samples,
               and the route says so): 4 steps and the step-0 validation, in
               f32 and then with --compute_dtype bfloat16.  Checks every
-              logged loss is finite, 8 launches per training forward and per
+              logged loss is finite, 10 launches per training forward and per
               validation forward (in the bf16 run the training forwards' are
               the kernel's bf16 route), f32 master params, epoch_0/
               checkpoint.npz written in f32 and loaded by a second Trainer
@@ -393,7 +393,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 TF32_PRODUCTS_PER_MAC = 3  # the f32 route's 3xTF32 split
 ROUTES = {torch.float32: "wgmma_tf32x3", torch.bfloat16: "wgmma_bf16"}
-LAUNCHES_PER_FORWARD = 16  # 8 sites x 2 decoders
+LAUNCHES_PER_FORWARD = 20  # 10 sites x 2 decoders
 TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES = 12, 4, 1
 # the FootprintNetwork trainer's rate with its loader: 16 batches of 12 after
 # one untimed batch, as the seg trainer's
@@ -406,7 +406,7 @@ TIMED_BATCHES = (12, 16)  # the default batch, and one past it
 # the loader builds each batch on one thread, so a dump of a few batches
 # times mostly the first batch's loading
 TIMED_FRAMES = 192
-SEG_LAUNCHES_PER_FORWARD = 8  # 8 sites x 1 decoder
+SEG_LAUNCHES_PER_FORWARD = 10  # 10 sites x 1 decoder
 MATTERPORT_HW, MATTERPORT_RAW_HW = (512, 640), (1024, 1280)
 MATTERPORT_FRAMES, MATTERPORT_BATCH = 6, 4
 F16_BAR = 2e-3  # a float16 dump against its CPU twin: 2e-3 + 2e-3|cpu|
@@ -441,7 +441,7 @@ class Failures(list):
 
 
 def sites(batch, hw=(HEIGHT, WIDTH)):
-    """The kernel's 8 call sites per decoder in the forward at `hw` (192x640
+    """The kernel's 10 call sites per decoder in the forward at `hw` (192x640
     unless given): (name, pad_mode, input NHWC shape, Co, residual?, bias?,
     act)."""
     height, width = hw
@@ -452,6 +452,8 @@ def sites(batch, hw=(HEIGHT, WIDTH)):
          "none"),
         ("block2.post.conv1.skip_half", "reflect", (batch, h8, w8, 128), 128, True, True, "elu"),
         ("block2.post.conv2", "reflect", (batch, h8, w8, 128), 128, False, True, "elu"),
+        ("block3.pre.conv1", "reflect", (batch, h8, w8, 128), 64, False, True, "elu"),
+        ("block3.pre.conv2", "reflect", (batch, h8, w8, 64), 64, False, True, "elu"),
         ("block4.post.conv1.up_half", "up2_reflect", (batch, h4, w4, 64), 64, False, False, "none"),
         ("block4.post.conv1.skip_half", "reflect", (batch, h2, w2, 64), 64, True, True, "elu"),
         ("block4.post.conv2", "reflect", (batch, h2, w2, 64), 64, False, True, "elu"),
@@ -830,7 +832,7 @@ def phase_main(fail, workdir):
 
 def phase_times(net):
     """Per-site times at the main path's batch of 4, then the forward.
-    Returns the kernel's totals over one forward's 16 launches."""
+    Returns the kernel's totals over one forward's 20 launches."""
     totals = {k: 0.0 for k in ("ms", "ms_bf16", "graph_ms", "graph_ms_bf16", "plain_ms",
                                "library_ms", "library_ms_bf16", "bound_ms", "ops_ms",
                                "bytes_ms", "bound_ffma_ms", "bound_tc_ms",
@@ -1799,7 +1801,7 @@ def phase_pretrained(fail, run, workdir):
     """--pretrained_encoder: a synthetic torchvision-layout ResNet-34 .pth;
     one bf16 step from it through the trainer main.main builds.  Checks the
     step-0 encoder equals the file's weights exactly (and BN statistics),
-    16 launches for the step and 16 for its validation.  Returns them."""
+    20 launches for the step and 20 for its validation.  Returns them."""
     path = os.path.join(workdir, "resnet34_torchvision.pth")
     want = write_torchvision_resnet34(path, SEED)
     tm = trainer_for(run, ["--compute_dtype", "bfloat16", "--model_name", "smoke_pretrained",
@@ -4645,7 +4647,7 @@ def main():
                              else "bytes"),
                 "library_ms": totals["library_ms"]}]
     # the backward kernels: their launches on the training paths, their
-    # times per FootprintNetwork f32 step at batch 12 (16 launches each)
+    # times per FootprintNetwork f32 step at batch 12 (20 launches each)
     for k in BWD_KERNELS:
         t = bwd_totals[TRAIN_BATCH][k["name"]]
         kernels.append({**k, "launches": BWD_LAUNCHES[k["name"]],

@@ -50,6 +50,10 @@ DECODER_CHANNELS = (256, 128, 64, 64)
 # (nn/blocks.py): block2's 128 channels at 1/8 scale, where cuDNN's f32
 # heuristics fall off a cliff at batch 12, and block4's 64 at 1/2 scale
 FUSED_BLOCKS = (2, 4)
+# the decoder blocks whose pre-concat ConvBlock runs through the kernel:
+# block3's 128 -> 64 channels at 1/8 scale, where cuDNN's f32 heuristics
+# pick their FFT algorithm at batch 12
+FUSED_PRE_CONCAT = (3,)
 
 
 class SkipDecoder(nn.Module):
@@ -59,8 +63,10 @@ class SkipDecoder(nn.Module):
     to full resolution (1, 1, 1 leaves them at their native scales).
 
     Blocks 2 and 4 (``FUSED_BLOCKS``) run their post-concat ConvBlock
-    through the CUDA kernel, 3 launches each, and the tail ConvBlock 2:
-    8 launches per decoder per forward; blocks 1 and 3 stay on cuDNN."""
+    through the CUDA kernel, 3 launches each, block3 (``FUSED_PRE_CONCAT``)
+    its pre-concat ConvBlock, 2, and the tail ConvBlock 2: 10 launches per
+    decoder per forward; the other pre-concat ConvBlocks and blocks 1 and
+    3's post-concat ConvBlocks stay on cuDNN."""
 
     def __init__(self, enc_channels, apply_sigmoid, out_ch=2, in_ch=None,
                  out_scales=(8, 4, 2)):
@@ -68,7 +74,8 @@ class SkipDecoder(nn.Module):
         c_in = enc_channels[-1] if in_ch is None else in_ch
         skips = enc_channels[-2::-1]
         for i, (c_out, skip_ch) in enumerate(zip(DECODER_CHANNELS, skips), 1):
-            block = ConvUpsampleAndConcatBlock(c_in, c_out, skip_ch, fused=i in FUSED_BLOCKS)
+            block = ConvUpsampleAndConcatBlock(c_in, c_out, skip_ch, fused=i in FUSED_BLOCKS,
+                                               fused_pre=i in FUSED_PRE_CONCAT)
             setattr(self, f"block{i}", block)
             c_in = c_out
         s8, s4, s2 = out_scales

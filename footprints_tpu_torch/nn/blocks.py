@@ -10,16 +10,17 @@ them (use_bn=False), so a reference state_dict loads strictly.  They are
 frozen (``requires_grad=False``): the JAX pytree has no such leaves, so the
 optimizer never sees them.
 
-Three of the decoder's ConvBlocks run through the hand-written CUDA kernel
+Four of the decoder's ConvBlocks run through the hand-written CUDA kernel
 (ops/fused_conv.py), every time, at every batch, in training as in serving:
 the post-concat ConvBlocks of block2 and block4
-(``ConvUpsampleAndConcatBlock(fused=True)``, 3 launches each) and the tail
-ConvBlock (``decoder_tail``, 2), 8 launches per decoder per forward.  Their
-backward is the op's registered autograd: the hand-written dgrad and wgrad
-kernels, 8 launches each per decoder per step.  The other convs are
-``F.pad(reflect)`` + ``F.conv2d``.  Tensors are NCHW views of channels_last
-memory; the kernel sites permute them to NHWC views, and a fused block
-returns the NCHW view of the kernel's NHWC output.
+(``ConvUpsampleAndConcatBlock(fused=True)``, 3 launches each), block3's
+pre-concat ConvBlock (``fused_pre=True``: ``ConvBlock(fused=True)``, 2) and
+the tail ConvBlock (``decoder_tail``, 2), 10 launches per decoder per
+forward.  Their backward is the op's registered autograd: the hand-written
+dgrad and wgrad kernels, 10 launches each per decoder per step.  The other
+convs are ``F.pad(reflect)`` + ``F.conv2d``.  Tensors are NCHW views of
+channels_last memory; the kernel sites permute them to NHWC views, and a
+fused block returns the NCHW view of the kernel's NHWC output.
 
 Inside ``parallel.halo.shard_rows`` each block runs on a row shard: the
 reflect convs and the bilinear heads exchange their halo rows
@@ -59,9 +60,21 @@ def _site_input(x, mesh):
     return _nhwc(exchange_rows(x, 1, 1, mesh)), seam_rows(mesh, 1, 1)
 
 
+def _reflect_site(conv, x, mesh):
+    """``conv`` (reflect pad, bias, ELU) at a kernel site: NCHW ``x``, this
+    rank's rows, -> NHWC, this rank's rows."""
+    x, halo = _site_input(x, mesh)
+    return conv_reflect_fused(x, conv.weight, conv.bias, act="elu", halo=halo)
+
+
 class ConvBlock(nn.Module):
-    def __init__(self, in_ch, out_ch):
+    """[reflect-pad(1) -> 3x3 conv -> ELU] x 2.  fused=True runs both convs
+    through the CUDA kernel's 'reflect' route, bias and ELU fused: 2
+    launches, and no padded tensor exists."""
+
+    def __init__(self, in_ch, out_ch, *, fused=False):
         super().__init__()
+        self.fused = fused
         self.conv1 = nn.Conv2d(in_ch, out_ch, 3)
         self.bn1 = nn.BatchNorm2d(out_ch)  # unused, kept for the state_dict
         self.conv2 = nn.Conv2d(out_ch, out_ch, 3)
@@ -70,13 +83,17 @@ class ConvBlock(nn.Module):
         self.bn2.requires_grad_(False)
 
     def forward(self, x):
+        mesh = row_mesh(self)
+        if self.fused:
+            y = _reflect_site(self.conv1, x, mesh)
+            return _nchw(_reflect_site(self.conv2, _nchw(y), mesh))
         # on a row shard the padded input goes to cuDNN in channels_last:
         # at the decoder's 1/4-scale shard shapes ([4,128|64,26|18,162],
         # 192x640 over 2 and 3 shards) its f32 heuristics pick, for NCHW, an
         # algorithm with a 2-4 GiB workspace and ~50x the time; the heads'
         # convs (2 output channels) keep NCHW, whose workspace is the
         # smaller there (chip_smoke.py:spatial_cudnn_probe, H100)
-        mesh, fmt = row_mesh(self), torch.channels_last
+        fmt = torch.channels_last
         x = elu(conv2d(reflect_pad(x, 1, mesh, fmt), self.conv1.weight, self.conv1.bias))
         return elu(conv2d(reflect_pad(x, 1, mesh, fmt), self.conv2.weight, self.conv2.bias))
 
@@ -93,15 +110,17 @@ class ConvUpsampleAndConcatBlock(nn.Module):
     rest, so neither the upsampled, the concatenated nor the padded tensor
     exists; then conv2.  3 launches: the up-conv, the skip's conv with the
     bias, the up-conv as its residual and ELU, and conv2 with ELU.
+    fused_pre=True runs the pre-concat ConvBlock through the kernel
+    (``ConvBlock(fused=True)``, 2 launches).
 
     On either route, what follows the pre-concat ConvBlock is the span
     ``decoder.post_concat``, timed on the card while tracing.
     """
 
-    def __init__(self, in_ch, out_ch, skip_ch=None, *, fused=False):
+    def __init__(self, in_ch, out_ch, skip_ch=None, *, fused=False, fused_pre=False):
         super().__init__()
         self.fused = fused
-        self.pre_concat_conv = ConvBlock(in_ch, out_ch)
+        self.pre_concat_conv = ConvBlock(in_ch, out_ch, fused=fused_pre)
         self.post_concat_conv = ConvBlock(out_ch + (skip_ch or out_ch), out_ch)
 
     def forward(self, x, skip):
@@ -114,7 +133,6 @@ class ConvUpsampleAndConcatBlock(nn.Module):
     def _fused_post_concat(self, x, skip):
         c_up = x.shape[1]
         conv1 = self.post_concat_conv.conv1
-        conv2 = self.post_concat_conv.conv2
         mesh = row_mesh(self)
         # the weight halves are input-channel slice views: no copy
         x, halo = _site_input(x, mesh)
@@ -126,9 +144,7 @@ class ConvUpsampleAndConcatBlock(nn.Module):
         skip, halo = _site_input(skip, mesh)
         y = conv_reflect_res_fused(skip, conv1.weight[:, c_up:], conv1.bias, r, act="elu",
                                    halo=halo)
-        if mesh is not None:
-            y, halo = _site_input(_nchw(y), mesh)
-        return _nchw(conv_reflect_fused(y, conv2.weight, conv2.bias, act="elu", halo=halo))
+        return _nchw(_reflect_site(self.post_concat_conv.conv2, _nchw(y), mesh))
 
 
 class OutConvBlock(nn.Module):
@@ -155,8 +171,4 @@ def decoder_tail(conv_block, out_block, x):
     x, halo = _site_input(x, mesh)
     y = up_conv_fused(x, conv_block.conv1.weight, conv_block.conv1.bias, act="elu",
                       halo=halo)
-    if mesh is not None:
-        y, halo = _site_input(_nchw(y), mesh)
-    y = conv_reflect_fused(y, conv_block.conv2.weight, conv_block.conv2.bias,
-                           act="elu", halo=halo)
-    return out_block(_nchw(y))
+    return out_block(_nchw(_reflect_site(conv_block.conv2, _nchw(y), mesh)))

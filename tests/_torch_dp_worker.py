@@ -186,12 +186,14 @@ def op_setup(spatial):
     tail = (_seeded(blocks.ConvBlock(6, 4), rng), _seeded(blocks.OutConvBlock(4, 2), rng))
     heads = {s: _seeded(blocks.OutConvBlock(6, 2, s, True), rng) for s in (2, 4, 8)}
     psp = _seeded(PSP(8), rng)
+    pre_block = _seeded(blocks.ConvBlock(6, 4, fused=True), rng)
     leaves = {"image": image, "x": x, "low": low, "skip": skip, "psp_in": psp_in, "w7": w7,
               "w3": w3, "w1": w1, "w_up": w_up, "w_skip": w_skip, "w2": w2, "b": b}
     for t in leaves.values():
         t.requires_grad_()
     for prefix, m in (("up_block", up_block), ("tail0", tail[0]), ("tail1", tail[1]),
-                      ("psp", psp), *((f"head{s}", h) for s, h in heads.items())):
+                      ("psp", psp), *((f"head{s}", h) for s, h in heads.items()),
+                      ("pre_block", pre_block)):
         leaves.update({f"{prefix}.{n}": p for n, p in m.named_parameters() if p.requires_grad})
 
     def nchw(y):
@@ -237,6 +239,7 @@ def op_setup(spatial):
         "fused_reflect": reflect_site,
         "fused_reflect_residual": residual_site,
         "block4_fused": lambda m: module(m, up_block, low, skip),
+        "block3_pre_fused": lambda m: module(m, pre_block, x),
         "decoder_tail": tail_fn,
     }
     for s, head in heads.items():
@@ -286,9 +289,9 @@ def footprint_eval_rank(mesh, state_dict_path, batch):
     """On this rank's shard of ``batch``, on its device: the
     FootprintNetwork-18's spatial eval losses in f32 and in bf16 with the
     packed heads, its rows of the f32 '1/1' map, and the kernel's launches
-    in each eval: on the card 16, every site on the rank's rows (8 a decoder:
-    block2's post-concat ConvBlock 3, block4's 3, the tail's 2), 0 on the
-    CPU."""
+    in each eval: on the card 20, every site on the rank's rows (10 a
+    decoder: block2's post-concat ConvBlock 3, block3's pre-concat
+    ConvBlock 2, block4's 3, the tail's 2), 0 on the CPU."""
     net = _footprint_net(state_dict_path, mesh.device)
     local = shard_batch(mesh, batch)
     out = {"shard": {k: v.cpu().numpy() for k, v in local.items()}}
@@ -408,9 +411,10 @@ def spatial_step_rank(mesh, model, state_dict_path, batch, config=None):
     keywords) or Segmentor-18 (PSP; ``config``: {'compute_dtype': ...}) from
     the weights in ``state_dict_path``, on this rank's shard of ``batch`` on
     its device: ``_step_result``, this rank's forward and backward
-    exchanges and the kernel's forward launches: on the card 16 for the
-    FootprintNetwork and 8 for the Segmentor (8 sites a decoder: block2's
-    post-concat ConvBlock 3, block4's 3, the tail's 2), 0 on the CPU."""
+    exchanges and the kernel's forward launches: on the card 20 for the
+    FootprintNetwork and 10 for the Segmentor (10 sites a decoder: block2's
+    post-concat ConvBlock 3, block3's pre-concat ConvBlock 2, block4's 3,
+    the tail's 2), 0 on the CPU."""
     config = config or {}
     if model == "footprint":
         net = _footprint_net(state_dict_path, mesh.device)

@@ -42,10 +42,11 @@ pytestmark = pytest.mark.cuda
 # The kernel's sites a decoder, each one forward launch per forward and one
 # dgrad and one wgrad launch per train step: the post-concat ConvBlocks of
 # block2 and block4 (conv1's up half, conv1's skip half with the up half as
-# its residual, conv2) and the tail ConvBlock (conv1 an up site, conv2).
-SITES_PER_DECODER = {"block2": 3, "block4": 3, "tail": 2}
-SEG_LAUNCHES = sum(SITES_PER_DECODER.values())  # one decoder: 8
-FP_LAUNCHES = 2 * SEG_LAUNCHES  # two decoders: 16
+# its residual, conv2), block3's pre-concat ConvBlock (conv1, conv2) and
+# the tail ConvBlock (conv1 an up site, conv2).
+SITES_PER_DECODER = {"block2": 3, "block3.pre": 2, "block4": 3, "tail": 2}
+SEG_LAUNCHES = sum(SITES_PER_DECODER.values())  # one decoder: 10
+FP_LAUNCHES = 2 * SEG_LAUNCHES  # two decoders: 20
 
 
 @pytest.fixture
@@ -357,7 +358,7 @@ def _live_forward(net, x):
 
 
 def test_bf16_artifact_on_the_card(cuda_device, tmp_path):
-    """A bf16 artifact exported on the card runs the kernel's bf16 route 16
+    """A bf16 artifact exported on the card runs the kernel's bf16 route 20
     times a batch there (FP_LAUNCHES), and also loads on the CPU; its per-channel MAE
     against the live f32 forward on the card is at most twice the CPU's
     + 1e-3."""
@@ -478,7 +479,7 @@ def test_train_step_gpu_matches_cpu(cuda_device):
     several 1e-3 from the exact one at the deep encoder's leaves, where
     train-mode BN's backward nearly cancels at batch 2, so two f32 steps can
     differ by the whole bar): losses 1e-5 + 1e-5|ref|, each gradient
-    ||d||/||ref|| < 2e-2, BN running stats 1e-5; 16 kernel launches
+    ||d||/||ref|| < 2e-2, BN running stats 1e-5; 20 kernel launches
     (FP_LAUNCHES)."""
     g = torch.Generator().manual_seed(23)
     nets = {d: FootprintNetwork(18, device=d, generator=torch.Generator().manual_seed(23))
@@ -518,8 +519,9 @@ def test_train_step_gpu_matches_cpu(cuda_device):
 @pytest.mark.parametrize("use_psp", [True, False])
 def test_segmentor_gpu_forward_matches_cpu(cuda_device, use_psp):
     """All 4 logit maps within MAE 1e-4 of the CPU forward (the plain
-    versions), and 8 kernel launches per forward (SEG_LAUNCHES: block2,
-    block4 and the tail of the one decoder)."""
+    versions), and 10 kernel launches per forward (SEG_LAUNCHES: block2,
+    block3's pre-concat ConvBlock, block4 and the tail of the one
+    decoder)."""
     net_gpu = Segmentor(34, use_psp, device=cuda_device,
                         generator=torch.Generator().manual_seed(5)).eval()
     net_cpu = Segmentor(34, use_psp).eval()
@@ -817,6 +819,33 @@ def test_kernels_at_the_block2_sites(cuda_device, dtype, batch, site):
     test_kernel_matches_plain_f32 (f32 1e-4 + 1e-4|ref|) and
     test_kernel_bf16_matches_f32_plain (2e-2), the backward's _bwd_close's
     (wgrad sums 480 to 23040 products an entry here)."""
+    _site_kernels_match_plain(cuda_device, dtype, batch, site)
+
+
+# block3's pre-concat ConvBlock at 192x640 (any encoder: block2's output is
+# 128 channels wide): (name, pad_mode, x NHWC at batch 1, Co, residual?),
+# whole [64, 128, 3, 3] and [64, 64, 3, 3] weights
+BLOCK3_PRE_SITES = [("block3.pre.conv1", "reflect", (1, 24, 80, 128), 64, False),
+                    ("block3.pre.conv2", "reflect", (1, 24, 80, 64), 64, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 12, 16])
+@pytest.mark.parametrize("site", BLOCK3_PRE_SITES, ids=[s[0] for s in BLOCK3_PRE_SITES])
+def test_kernels_at_the_block3_pre_concat_sites(cuda_device, dtype, batch, site):
+    """The forward, dgrad and wgrad kernels at block3's pre-concat sites
+    (reflect, bias, ELU; 128 -> 64 and 64 -> 64 channels at 24x80: one grid
+    of 64 output-channel tiles in the forward, two and one of 64
+    input-channel tiles in dgrad) at batch 1, 12 (where cuDNN's f32
+    heuristics pick their FFT) and 16, against their plain versions in f64,
+    each launched once, on its dtype's route, under the bars of
+    test_kernels_at_the_block2_sites."""
+    _site_kernels_match_plain(cuda_device, dtype, batch, site)
+
+
+def _site_kernels_match_plain(cuda_device, dtype, batch, site):
+    """One site's forward, dgrad and wgrad kernels, each launched once,
+    against their plain versions in f64 (test_kernels_at_the_block2_sites)."""
     name, pad_mode, shape, co, with_res = site
     g = torch.Generator().manual_seed(70 + batch + sum(shape))
     _, h, w_, ci = shape
@@ -909,7 +938,7 @@ def test_seg_train_step_gpu_matches_cpu(cuda_device, use_psp):
     """One seg train step of Segmentor-18 at 64x128 on the card against the
     same step on the CPU in f64 (see test_train_step_gpu_matches_cpu):
     losses 1e-5 + 1e-5|ref|, each gradient ||d||/||ref|| < 2e-2, BN running
-    stats 1e-5; 8 kernel launches (SEG_LAUNCHES)."""
+    stats 1e-5; 10 kernel launches (SEG_LAUNCHES)."""
     batch = _seg_batch(2, 64, 128, 26)
     m_gpu, n_gpu, g_gpu, net_gpu = _seg_step(cuda_device, batch, use_psp=use_psp)
     m_cpu, n_cpu, g_cpu, net_cpu = _seg_step("cpu", batch, torch.float64, use_psp=use_psp)
@@ -927,7 +956,7 @@ def test_seg_train_step_gpu_matches_cpu(cuda_device, use_psp):
 
 
 def test_seg_bf16_step_runs_the_bf16_route(cuda_device):
-    """The mixed step on the card: 8 launches, all of the bf16 route; f32
+    """The mixed step on the card: 10 launches, all of the bf16 route; f32
     master params and gradients; losses within 1e-2 of the f32 step's from
     the same weights, and not equal to them; its gradient (cuDNN's bf16
     convs, the kernels' bf16 routes, the mixed BN's backward on CUDA) no
@@ -975,7 +1004,7 @@ def _footprint_step(device, batch, dtype=torch.float32, compute="float32", heads
 
 def test_footprint_bf16_step_with_packed_heads_runs_the_bf16_route(cuda_device):
     """The FootprintNetwork's mixed step with both packed heads on the card:
-    16 launches, all of the bf16 route; f32 masters and gradients; losses
+    20 launches, all of the bf16 route; f32 masters and gradients; losses
     within 1e-2 of the f32 step's and not equal to them; its gradient no
     farther from an f64 CPU step than twice the CPU bf16 step's distance
     (the CPU path is held against the JAX package in
@@ -1020,9 +1049,9 @@ def test_footprint_bf16_step_with_packed_heads_runs_the_bf16_route(cuda_device):
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 def test_train_steps_launch_the_backward_kernels(cuda_device, model, compute):
     """A train step's backward runs the dgrad and wgrad kernels once per
-    site: 16 each for the FootprintNetwork (8 sites x 2 decoders:
-    SITES_PER_DECODER), 8 each for the Segmentor, all on the bf16 route in
-    the mixed step; the forward kernel's 16 (8) launches are all in the
+    site: 20 each for the FootprintNetwork (10 sites x 2 decoders:
+    SITES_PER_DECODER), 10 each for the Segmentor, all on the bf16 route in
+    the mixed step; the forward kernel's 20 (10) launches are all in the
     forward."""
     before = _bwd_launches()
     if model == "footprint":
@@ -1145,7 +1174,7 @@ def test_global_batch_norm_at_world_1_equals_f_batch_norm(nccl_world_1):
 
 def test_dp_step_at_world_1_runs_the_kernel(nccl_world_1):
     """A data-parallel FootprintNetwork-18 step (global BN, NCCL gradient
-    all-reduce) at world 1: 16 launches per forward, and the losses of the
+    all-reduce) at world 1: 20 launches per forward, and the losses of the
     plain step within 1e-5."""
     mesh = nccl_world_1
     g = torch.Generator().manual_seed(31)
@@ -1319,8 +1348,8 @@ def test_spatial_train_on_the_card_matches_one_process(cuda_device, tmp_path):
     batch 4, in two ranks on the card over gloo, each on its 32 rows,
     against the same step in one process on the card: the loss terms
     within 1e-5 + 1e-5|ref|, each gradient leaf ||d||/||ref|| < 2e-2, BN
-    running stats within 1e-5, the replicas bitwise equal after Adam, 16
-    (8) launches a rank a step: every site runs on each rank's rows."""
+    running stats within 1e-5, the replicas bitwise equal after Adam, 20
+    (10) launches a rank a step: every site runs on each rank's rows."""
     from footprints_tpu_torch.parallel.dryrun import spawn
 
     from . import _torch_dp_worker as worker
@@ -1361,7 +1390,7 @@ def test_spatial_train_on_the_card_matches_one_process(cuda_device, tmp_path):
 def test_spatial_eval_on_the_card_matches_one_process(cuda_device, tmp_path):
     """FootprintNetwork-18's and Segmentor-18's eval steps at 64x96, batch
     2, in two ranks on the card over gloo, each on its 32 rows: the losses
-    of the one-process eval within 1e-5 + 1e-5|ref|, 16 launches per rank
+    of the one-process eval within 1e-5 + 1e-5|ref|, 20 launches per rank
     per eval forward, the '1/1' rows within MAE 1e-4."""
     from footprints_tpu_torch.parallel.dryrun import spawn
     from footprints_tpu_torch.preprocessing.segmentation import trainer as seg_trainer

@@ -258,13 +258,14 @@ def test_exported_graph_hands_the_op_its_layouts(f32_artifact):
     """Every kernel call in the program gets an NHWC-contiguous x and a
     weight with strides (s, 9, 3, 1): the conv1 halves as input-channel
     slice views of block2's [128, 256, 3, 3] and block4's [64, 128, 3, 3]
-    weights."""
+    weights; block3's pre-concat weights, [64, 128, 3, 3] and [64, 64, 3,
+    3], whole."""
     program = torch.export.load(f32_artifact[0])
     calls = [n for n in program.graph.nodes
              if n.target is torch.ops.footprints.fused_conv3x3.default]
-    # 8 sites x 2 decoders: block2's and block4's post-concat ConvBlocks 3
-    # each, the tail's 2
-    assert len(calls) == 16
+    # 10 sites x 2 decoders: block2's and block4's post-concat ConvBlocks 3
+    # each, block3's pre-concat ConvBlock 2, the tail's 2
+    assert len(calls) == 20
     slices = {128: 0, 64: 0}
     for node in calls:
         x, w = (a.meta["val"] for a in node.args[:2])

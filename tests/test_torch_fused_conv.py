@@ -289,6 +289,75 @@ def test_block2_fused_matches_unfused_forward_and_gradients(skip_ch, dtype, tol)
         torch.testing.assert_close(got[k], want, atol=atol, rtol=tol, msg=k)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("skip_ch", [64, 256])
+def test_block3_fused_pre_concat_matches_unfused_forward_and_gradients(skip_ch, dtype, tol):
+    """ConvUpsampleAndConcatBlock(128, 64, skip_ch, fused_pre=True) at block3's
+    layout (a 12x40 input, a 24x80 skip, batch 2; the skip 64 channels wide
+    under ResNet-18/34, 256 under ResNet-50): the pre-concat ConvBlock on
+    the kernel's 'reflect' route (the plain versions of its two sites, their
+    gradients through the op's registered autograd) against the block on
+    cuDNN's route (reflect pads, F.conv2d, ELU), forward and the gradients
+    of x, the skip and every weight and bias, under the bars of
+    test_block2_fused_matches_unfused_forward_and_gradients."""
+    torch.manual_seed(14)
+    fused = ConvUpsampleAndConcatBlock(128, 64, skip_ch, fused_pre=True).to(dtype)
+    plain = ConvUpsampleAndConcatBlock(128, 64, skip_ch).to(dtype)
+    plain.load_state_dict(fused.state_dict())
+    assert fused.pre_concat_conv.fused and not plain.pre_concat_conv.fused
+    g = torch.Generator().manual_seed(15)
+    x = torch.randn(2, 12, 40, 128, generator=g, dtype=dtype)
+    skip = torch.randn(2, 24, 80, skip_ch, generator=g, dtype=dtype)
+    cot = torch.randn(2, 24, 80, 64, generator=g, dtype=dtype)
+
+    def run(block):
+        xs, ss = (_nchw(t.numpy()).requires_grad_() for t in (x, skip))
+        y = block(xs, ss)
+        (y * cot.permute(0, 3, 1, 2)).sum().backward()
+        grads = {n: p.grad for n, p in block.named_parameters() if p.requires_grad}
+        return y.detach(), {"x": xs.grad, "skip": ss.grad, **grads}
+
+    got_y, got = run(fused)
+    ref_y, ref = run(plain)
+    torch.testing.assert_close(got_y, ref_y, atol=tol, rtol=tol)
+    assert got.keys() == ref.keys() and len(got) == 2 + 8
+    for k, want in ref.items():
+        atol = tol * want.abs().max().item() if k not in ("x", "skip") else tol
+        torch.testing.assert_close(got[k], want, atol=atol, rtol=tol, msg=k)
+
+
+def test_block3_fused_pre_concat_matches_jax_conv_block():
+    """ConvBlock(128, 64, fused=True), block3's pre-concat ConvBlock on the
+    kernel's route, == the JAX package's conv_block (reflect pads, XLA
+    convs, ELU) at block3's widths on a 12x40 map, batch 2: the output, and
+    under one cotangent (jax.vjp) the gradients of x and of every weight
+    and bias.  Bars: ATOL for the output and x's gradient, ATOL max|ref| +
+    ATOL|ref| for the weight and bias gradients (sums of 960 pixels' products
+    added in another order)."""
+    params, state = jblocks.init_conv_block(jax.random.PRNGKey(4), 128, 64)
+    rng = np.random.RandomState(16)
+    x = rng.randn(2, 12, 40, 128).astype(np.float32)
+    cot = rng.randn(2, 12, 40, 64).astype(np.float32)
+    ref, vjp = jax.vjp(lambda p, a: jblocks.conv_block(p, state, a)[0], params,
+                       jnp.asarray(x))
+    ref_p, ref_x = vjp(jnp.asarray(cot))
+    block = ConvBlock(128, 64, fused=True)
+    _load_conv_block(block, params)
+    xs = _nchw(x).requires_grad_()
+    y = block(xs)
+    (y * _nchw(cot)).sum().backward()
+    np.testing.assert_allclose(y.detach().permute(0, 2, 3, 1).numpy(), np.asarray(ref),
+                               atol=ATOL)
+    np.testing.assert_allclose(xs.grad.permute(0, 2, 3, 1).numpy(), np.asarray(ref_x),
+                               atol=ATOL)
+    for name in ("conv1", "conv2"):
+        conv, want = getattr(block, name), ref_p[name]
+        for got, ref_g in ((conv.weight.grad, _oihw(np.asarray(want["w"])).numpy()),
+                           (conv.bias.grad, np.asarray(want["b"]))):
+            np.testing.assert_allclose(got.numpy(), ref_g, rtol=ATOL,
+                                       atol=ATOL * np.abs(ref_g).max(), err_msg=name)
+
+
 @pytest.mark.parametrize("apply_sigmoid", [False, True])
 def test_decoder_tail_matches_jax_pallas_path(monkeypatch, apply_sigmoid):
     monkeypatch.setattr(pallas_conv, "pallas_supported", lambda *a, **k: True)

@@ -59,8 +59,8 @@ SHAPES_HW = (512, 96)
 OP_WORLDS = {2: "1x2", 3: "1x3"}
 OPS = ("stem_conv_7x7_s2", "max_pool_3x3_s2", "conv_3x3_s1", "conv_3x3_s2", "conv_1x1_s2",
        "reflect_conv_3x3", "psp", "seg_upsample_to_x4", "fused_up2_reflect", "fused_reflect",
-       "fused_reflect_residual", "block4_fused", "decoder_tail", "bilinear_head_x2",
-       "bilinear_head_x4", "bilinear_head_x8")
+       "fused_reflect_residual", "block4_fused", "block3_pre_fused", "decoder_tail",
+       "bilinear_head_x2", "bilinear_head_x4", "bilinear_head_x8")
 
 
 def _fp_batch(n, h, w, seed):
