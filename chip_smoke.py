@@ -9,18 +9,19 @@ final result line:
   1. device   torch and CUDA versions, the card's name and power limit;
   2. build    nvcc-builds the CUDA kernels from footprints_tpu_torch/csrc/;
   3. sites    holds fused_conv3x3 against its plain PyTorch version at the
-              10 decoder sites of the kitti 192x640 forward, batch 4, in f32
+              decoder sites (kernel_sites: each call of the kernel in the
+              model's forward) of the kitti 192x640 forward, batch 4, in f32
               (atol = rtol = 1e-4, TF32 off on both sides: 576-term dot
               products summed in another order) and bf16 (2e-2 against the
               f32 plain version on the same bf16-rounded inputs: the output
-              is rounded to bf16), and at the 10 sites of the Matterport
+              is rounded to bf16), and at the sites of the Matterport
               dump's 512x640 forward, batch 4, in f32;
   4. main     writes a seeded FootprintNetwork-34 as model.pth and serves
               it through footprints_tpu_torch.predict_simple on the GPU: one
               image, then folder mode over test_data/, each run again with
               --device cpu.  Checks each .npy is a finite [4,192,640] map
-              within MAE 1e-4 of its CPU twin, that the kernel ran 20 times
-              per GPU batch, and that the GPU forward matches the CPU forward
+              within MAE 1e-4 of its CPU twin, that the kernel ran once a
+              site per GPU batch, and that the GPU forward matches the CPU forward
               (MAE < 1e-4 at every scale);
   5. times    at each site, the mean time per call over 20 eager calls
               (CUDA events, the method of the port's first kernel) of the
@@ -40,8 +41,8 @@ final result line:
   6. profile  torch.profiler device time by kernel over the batch-16
               forward, the idle share, and the full table in
               smoke_out/profile_b16.json; checks the forward's two device
-              kernels (the pre-pack and the main kernel) ran 20 times each
-              per forward;
+              kernels (the pre-pack and the main kernel) ran once a site
+              each per forward;
   7. train    trains FootprintNetwork-34 at 192x640, batch 12, through
               footprints_tpu_torch.main on a synthetic KITTI tree of
               375x1242 frames (where PIL, OpenCV and PyYAML all import;
@@ -51,10 +52,10 @@ final result line:
               at step 0, 'exact' compact transport.  Checks every logged
               loss is finite, weights_0/checkpoint.npz holds step 4, a
               second TrainManager resumes step 4 and the Adam moments, and
-              the kernel ran 20 times per training forward and per
-              validation forward, the dgrad and wgrad kernels 20 times each
-              per step (the same counts in every rank of phases dp and
-              spatial, 10 for the Segmentor in every training phase).
+              the kernel ran once a site per training forward and per
+              validation forward, the dgrad and wgrad kernels once a site
+              each per step (the same counts in every rank of phases dp and
+              spatial, and the Segmentor's sites in every training phase).
               Then one GPU step against one CPU step
               in f64 from the same weights and batch (batch 2, 192x640, the
               first validation samples): each loss term within
@@ -100,7 +101,7 @@ final result line:
               resident per SM; the launch counters do not move;
   8b. train_bf16  on phase 7's data, main --mode train --compute_dtype
               bfloat16 (the packed heads on by 'auto'): 4 steps and the
-              step-0 validation, 100 launches all on the bf16 route, f32
+              step-0 validation, every launch on the bf16 route, f32
               masters and checkpoint, the packed '@s2d'/'@s2d2' targets on
               the card batch, and a resume; at batch 2 on a seeded noise
               batch, the GPU bf16 step's gradient no farther from an f64
@@ -121,15 +122,15 @@ final result line:
   8d. dp     data parallelism (footprints_tpu_torch/parallel/), on phase 7's
               tree and batch: (a) python -m torch.distributed.run
               --standalone --nproc_per_node=1 -m footprints_tpu_torch.main
-              --mode train (NCCL, world 1) at batch 12: 100 launches (read
-              from the rank's last line), a finite logged loss,
+              --mode train (NCCL, world 1) at batch 12: a launch a site a
+              forward (read from the rank's last line), a finite logged loss,
               weights_0/checkpoint.npz at step 4 written once and resumed
               by a plain TrainManager; (b) dryrun_multichip(2,
               device='cuda'): two ranks on the one card over gloo, one f32
               step and one bf16 packed-head step of FootprintNetwork-34 at
               192x640, 2 images a rank, replicas bitwise equal after each,
-              20 launches per rank per forward (the bf16 ones on the bf16
-              route); (c) on phase 8b's batch-2 noise batch, the world-1
+              a launch a site per rank per forward (the bf16 ones on the
+              bf16 route); (c) on phase 8b's batch-2 noise batch, the world-1
               (NCCL) and world-2 (gloo, 1 image a rank) DP steps against
               the f64 CPU step of phase 8b at phase 7's bars, the
               single-process GPU step's distance printed beside them; (d)
@@ -146,11 +147,11 @@ final result line:
               10), noise batches: (a) FootprintNetwork-34 at 192x640,
               batch 4, 2 row shards: the f32 eval losses on every rank
               within 1e-5 + 1e-5|ref| of the single-process eval on the
-              card, the gathered '1/1' map within MAE 1e-4, 20 launches a
-              rank a forward; the bf16 eval with the packed heads no
+              card, the gathered '1/1' map within MAE 1e-4, a launch a site
+              a rank a forward; the bf16 eval with the packed heads no
               farther from the f32 eval than twice the single process's
-              bf16 eval + 1e-3, 20 bf16-route launches a rank; (b)
-              Segmentor-34 (PSP), the same at 10 launches (one world of 2
+              bf16 eval + 1e-3, every launch on the bf16 route; (b)
+              Segmentor-34 (PSP), the same at its own sites (one world of 2
               with (a)); (c) FootprintNetwork-34 at 512x640, batch 2, 4 row
               shards (middle ranks with a seam on each side), as (a).  In
               each, every kernel call of the main path (on the rank's rows
@@ -168,9 +169,9 @@ final result line:
               process on the card: f32 losses within 1e-5 + 1e-5|ref|,
               each gradient leaf before Adam ||d||/||ref|| < 2e-2 (worst
               printed), BN running stats within 1e-5, the replicas bitwise
-              equal over the ranks after Adam, 20 (10) launches a rank in
-              the forward and none in the backward, 20 (10) of each backward
-              kernel a rank; bf16 no farther from
+              equal over the ranks after Adam, a launch a site a rank in
+              the forward and none in the backward, one of each backward
+              kernel a site a rank; bf16 no farther from
               the one-process f32 step than twice the one-process bf16
               step, plus 1e-3 at a loss term and 2^-8 at a gradient leaf.
               Printed, no claim: the f32 train step's ms a rank against
@@ -181,13 +182,13 @@ final result line:
               torch.export program with the kernel as the custom op
               footprints::fused_conv3x3): a bf16 batch-16 artifact served
               over test_data/ through predict_simple --artifact (each .npy a
-              finite [4,192,640] map; 20 launches per batch, all bf16); a
+              finite [4,192,640] map; a launch a site per batch, all bf16); a
               bf16 batch-2 artifact on the card and on the CPU, each against
               the live f32 forward on its device (per-channel MAE: the card's
               at most twice the CPU's + 1e-3); an f32 batch-2 artifact
               within MAE 1e-4 of the live f32 forward; a seeded Segmentor-34
               (PSP) bf16 artifact at batch 12 through predict_simple's
-              manager (10 bf16 launches) against the live f32 Tester.forward
+              manager (a bf16 launch a site) against the live f32 Tester.forward
               on the same frames, under the same rule.  Each export's wall
               time, size and count of ATen calls in its graph;
   8f. export_times  the bf16 artifact's imgs/s at batch 16 and p50 at
@@ -206,8 +207,8 @@ final result line:
               PyYAML import, the real dataset; otherwise InferenceManager
               over in-memory images with the same {'image', 'idx'} contract
               and save_result, and the route says so.  Checks the 26 files
-              (float16 [4,192,640], finite, sigmoid channels in [0,1]), 20
-              launches per batch, the first batch against a --device cpu
+              (float16 [4,192,640], finite, sigmoid channels in [0,1]), a
+              launch a site per batch, the first batch against a --device cpu
               run (2e-3 + 2e-3|cpu|), and the overlapped dump byte-identical
               to the serial one.  Then a Matterport dump at 512x640 (6
               frames, batch 4) on the GPU and its --device cpu twin: every
@@ -226,8 +227,8 @@ final result line:
  10. seg_dump the same for a seeded Segmentor-34 with PSP through
               footprints_tpu_torch.preprocessing.segmentation.main --mode
               inference over the sorted train+val split of the same 26
-              frames: the ground_seg tree (float16 [1,192,640] in [0,1]), 10
-              launches per batch, overlap byte-identical to serial, the GPU
+              frames: the ground_seg tree (float16 [1,192,640] in [0,1]), a
+              launch a site per batch, overlap byte-identical to serial, the GPU
               forward against the CPU forward at every scale (MAE < 1e-4),
               times and profile at batch 12 and 16;
  11. seg_train  trains a Segmentor-34 with PSP at 192x640, batch 12,
@@ -238,8 +239,8 @@ final result line:
               and PyYAML import; otherwise the Trainer on in-memory samples,
               and the route says so): 4 steps and the step-0 validation, in
               f32 and then with --compute_dtype bfloat16.  Checks every
-              logged loss is finite, 10 launches per training forward and per
-              validation forward (in the bf16 run the training forwards' are
+              logged loss is finite, a launch a site per training forward and
+              per validation forward (in the bf16 run the training forwards' are
               the kernel's bf16 route), f32 master params, epoch_0/
               checkpoint.npz written in f32 and loaded by a second Trainer
               through --load_path; then, at batch 2 on a seeded noise batch,
@@ -299,6 +300,8 @@ final result line:
 Exits non-zero when CUDA is absent or the package is not beside this file.
 """
 
+import collections
+import functools
 import importlib.util
 import json
 import os
@@ -329,6 +332,7 @@ from footprints_tpu_torch.eval import evaluate
 from footprints_tpu_torch.eval.inference import InferenceManager
 from footprints_tpu_torch.model_manager import ModelManager
 from footprints_tpu_torch.models import SCALES, FootprintNetwork, Segmentor
+from footprints_tpu_torch.models.footprint import kernel_sites
 from footprints_tpu_torch.nn import resnet
 from footprints_tpu_torch.preprocessing.ground_truth_generation import data_loader as gt_loader
 from footprints_tpu_torch.preprocessing.ground_truth_generation import generator as gt_generator
@@ -357,6 +361,10 @@ from footprints_tpu_torch.train.step import (TrainStepConfig, build_eval_step,
                                              build_train_step, forward_in, make_optimizer)
 from footprints_tpu_torch.train.trainer import SEED as TRAIN_SEED
 from footprints_tpu_torch.train.trainer import TrainManager
+from portbench.devtrace import kernel_category, union_ns
+from portbench.flops import (PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS, PEAK_TF32_FLOPS,
+                             TF32_PRODUCTS_PER_MAC, backward_bound_s, forward_bound_s,
+                             site_flops)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HEIGHT, WIDTH = 192, 640
@@ -385,15 +393,7 @@ BWD_DEVICE_KERNELS = ("fused_conv3x3_dgrad_pack_kernel", "fused_conv3x3_dgrad_ke
 FWD_DEVICE_KERNELS = ("fused_conv3x3_pack_kernel", "fused_conv3x3_kernel")
 # the probe's sites (phase probe): an up site and a reflect site of 64 channels
 PROBE_SITES = ("tail.conv1", "block4.post.conv2")
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): f32 outside
-# the tensor cores, TF32 and bf16 on them, and HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
-TF32_PRODUCTS_PER_MAC = 3  # the f32 route's 3xTF32 split
 ROUTES = {torch.float32: "wgmma_tf32x3", torch.bfloat16: "wgmma_bf16"}
-LAUNCHES_PER_FORWARD = 20  # 10 sites x 2 decoders
 TRAIN_BATCH, TRAIN_STEPS, VAL_BATCHES = 12, 4, 1
 # the FootprintNetwork trainer's rate with its loader: 16 batches of 12 after
 # one untimed batch, as the seg trainer's
@@ -406,7 +406,6 @@ TIMED_BATCHES = (12, 16)  # the default batch, and one past it
 # the loader builds each batch on one thread, so a dump of a few batches
 # times mostly the first batch's loading
 TIMED_FRAMES = 192
-SEG_LAUNCHES_PER_FORWARD = 10  # 10 sites x 1 decoder
 MATTERPORT_HW, MATTERPORT_RAW_HW = (512, 640), (1024, 1280)
 MATTERPORT_FRAMES, MATTERPORT_BATCH = 6, 4
 F16_BAR = 2e-3  # a float16 dump against its CPU twin: 2e-3 + 2e-3|cpu|
@@ -440,26 +439,23 @@ class Failures(list):
         return ok
 
 
-def sites(batch, hw=(HEIGHT, WIDTH)):
-    """The kernel's 10 call sites per decoder in the forward at `hw` (192x640
-    unless given): (name, pad_mode, input NHWC shape, Co, residual?, bias?,
-    act)."""
-    height, width = hw
-    h2, w2, h4, w4 = height // 2, width // 2, height // 4, width // 4
-    h8, w8, h16, w16 = height // 8, width // 8, height // 16, width // 16
-    return [
-        ("block2.post.conv1.up_half", "up2_reflect", (batch, h16, w16, 128), 128, False, False,
-         "none"),
-        ("block2.post.conv1.skip_half", "reflect", (batch, h8, w8, 128), 128, True, True, "elu"),
-        ("block2.post.conv2", "reflect", (batch, h8, w8, 128), 128, False, True, "elu"),
-        ("block3.pre.conv1", "reflect", (batch, h8, w8, 128), 64, False, True, "elu"),
-        ("block3.pre.conv2", "reflect", (batch, h8, w8, 64), 64, False, True, "elu"),
-        ("block4.post.conv1.up_half", "up2_reflect", (batch, h4, w4, 64), 64, False, False, "none"),
-        ("block4.post.conv1.skip_half", "reflect", (batch, h2, w2, 64), 64, True, True, "elu"),
-        ("block4.post.conv2", "reflect", (batch, h2, w2, 64), 64, False, True, "elu"),
-        ("tail.conv1", "up2_reflect", (batch, h2, w2, 64), 32, False, True, "elu"),
-        ("tail.conv2", "reflect", (batch, height, width, 32), 32, False, True, "elu"),
-    ]
+@functools.cache
+def model_sites(model, batch, hw=(HEIGHT, WIDTH)):
+    """The kernel's call sites in one forward of the FootprintNetwork-34
+    ("footprint") or the Segmentor-34 with the PSP ("segmentor"), the
+    models the phases run, at `batch` x `hw` (kernel_sites), named without
+    their decoder's prefix, each once with the calls it stands for (the
+    FootprintNetwork's two decoders make the same ones): {(name, pad_mode,
+    input NHWC shape, Co, residual?, bias?, act): calls}."""
+    net = (FootprintNetwork(34, device="meta") if model == "footprint"
+           else Segmentor(34, True, device="meta"))
+    return types.MappingProxyType(collections.Counter(
+        (name.split(".", 1)[1], *rest) for name, *rest in kernel_sites(net, batch, *hw)))
+
+
+def launches_per_forward(model):
+    """The kernel's launches in one forward of `model`: one a call site."""
+    return sum(model_sites(model, 1).values())
 
 
 def site_inputs(site, dtype, seed):
@@ -523,28 +519,15 @@ def graph_ms(fn, iters=20, reps=3):
     return statistics.mean(times)
 
 
-def site_taps(pad_mode):
-    """Taps per output pixel the function needs, which the kernel does:
-    conv3x3(reflect_pad(nearest_up2(x))) is, for each of the 4 output
-    phases, an exact 2x2 conv on the low-res input (the edge-pad identity),
-    so an up site needs 4 taps."""
-    return 9 if pad_mode == "reflect" else 4
-
-
-def site_flops(site):
-    _, pad_mode, (n, h, w_, ci), co, _, _, _ = site
-    outputs = n * h * w_ * (1 if pad_mode == "reflect" else 4)
-    return 2 * site_taps(pad_mode) * ci * co * outputs
-
-
 def bounds(site, x, w, b, r):
     """Least times (ms) of the work the site's function needs in x's dtype,
-    each input read once and the output written once: {"ops_ffma_ms",
-    "ops_tc_ms", "bytes_ms"}.  f32 counts 3 TF32 products per MAC on the
-    tensor cores (the f32-accurate route); bf16 one bf16 product."""
+    each input read once and the output written once, apart: {"ops_ffma_ms",
+    "ops_tc_ms", "bytes_ms"}, which the benchmark's forward_bound_s
+    (portbench/flops.py) folds into one.  f32 counts 3 TF32 products per MAC
+    on the tensor cores (the f32-accurate route); bf16 one bf16 product."""
     _, pad_mode, (n, h, w_, _), co, _, _, _ = site
     ho, wo = (h, w_) if pad_mode == "reflect" else (2 * h, 2 * w_)
-    flops = site_flops(site)
+    flops = site_flops(site[:6])
     nbytes = sum(t.numel() * t.element_size() for t in (x, w, b, r) if t is not None)
     nbytes += n * ho * wo * co * x.element_size()
     tc = (TF32_PRODUCTS_PER_MAC * flops / PEAK_TF32_FLOPS if x.dtype == torch.float32
@@ -613,22 +596,6 @@ def cudnn_backward(pad_mode, x, w, gz, need_x, need_w):
     return gx, gw
 
 
-def bwd_bound(site, x, w, gz):
-    """Least time (ms) of one backward kernel's work in x's dtype, and what
-    bounds it: the forward's MACs (site_flops: an up site at its 4 phase
-    taps per output), 3 TF32 products per MAC in f32 on the tensor cores
-    (or f32 FMAs off them, if less), 1 bf16 product in bf16; bytes: dgrad
-    reads gz and w and writes gx (x's size), wgrad reads gz and x and
-    writes gw (w's size), each once: the same for both kernels."""
-    flops = site_flops(site)
-    if x.dtype == torch.float32:
-        ops = min(flops / PEAK_F32_FLOPS, TF32_PRODUCTS_PER_MAC * flops / PEAK_TF32_FLOPS)
-    else:
-        ops = flops / PEAK_BF16_FLOPS
-    moved = sum(t.numel() * t.element_size() for t in (gz, x, w)) / PEAK_BYTES
-    return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
-
-
 def backward_kernels(fail, tag, site, x, w, gz):
     """The dgrad and wgrad kernels at one site on the card (x and w as the
     op gets them, gz the pre-activation cotangent): each against its plain
@@ -650,7 +617,12 @@ def backward_kernels(fail, tag, site, x, w, gz):
             lambda: fc.fused_conv3x3_wgrad_plain(gz, x, pad_mode=pad_mode),
             lambda: cudnn_backward(pad_mode, x, w, gz, False, True),
             lambda: fc.fused_conv3x3_wgrad_plain(gz.double(), x.double(), pad_mode=pad_mode))}
-    bound_ms, bound_by = bwd_bound(site, x, w, gz)
+    # the least time of one kernel's work (portbench/flops.py), and whether
+    # the operations (the forward's MACs) or the bytes set it
+    bound_ms = backward_bound_s(site[:6], str(x.dtype).removeprefix("torch.")) * 1e3
+    ops = bounds(site, x, w, None, None)
+    ops_ms = min(ops["ops_ffma_ms"], ops["ops_tc_ms"]) if f32 else ops["ops_tc_ms"]
+    bound_by = "operations" if ops_ms >= bound_ms else "bytes"
     out = {}
     for name, (kernel, plain, library, reference) in calls.items():
         got, ref = kernel(), reference()
@@ -686,7 +658,7 @@ def phase_probe(fail, probe_build):
 
     probe_build.result()
     out = []
-    for si, site in enumerate(sites(TRAIN_BATCH)):
+    for si, site in enumerate(model_sites("footprint", TRAIN_BATCH)):
         if site[0] not in PROBE_SITES:
             continue
         for dtype in (torch.float32, torch.bfloat16):
@@ -722,8 +694,9 @@ def phase_sites(fail):
     dtype).  Returns the f32 max abs error."""
     worst = 0.0
     f32, bf16 = (torch.float32, 1e-4), (torch.bfloat16, 2e-2)
-    cases = [(site, (f32, bf16)) for site in sites(batch=4)]
-    cases += [(site, (f32,)) for site in sites(MATTERPORT_BATCH, MATTERPORT_HW)]
+    cases = [(site, (f32, bf16)) for site in model_sites("footprint", 4)]
+    cases += [(site, (f32,)) for site in model_sites("footprint", MATTERPORT_BATCH,
+                                                      MATTERPORT_HW)]
     for si, (site, dtypes) in enumerate(cases):
         name, pad_mode, _, _, _, _, act = site
         for dtype, tol in dtypes:
@@ -789,11 +762,11 @@ def phase_main(fail, workdir):
     torch.cuda.synchronize()
     launches = fused_conv3x3.launches
 
-    n_files, worst_mae = 0, 0.0
+    n_files, worst_mae, per_batch = 0, 0.0, launches_per_forward("footprint")
     for tag, (out, n_launch), (cpu_out, n_cpu) in runs:
-        fail.check(n_launch == LAUNCHES_PER_FORWARD and n_cpu == 0,
+        fail.check(n_launch == per_batch and n_cpu == 0,
                    f"{tag}: {n_launch} kernel launches for one batch on the GPU "
-                   f"(expected {LAUNCHES_PER_FORWARD}), {n_cpu} on the CPU")
+                   f"(expected {per_batch}), {n_cpu} on the CPU")
         files = sorted(os.listdir(out))
         fail.check(len(files) > 0 and files == sorted(os.listdir(cpu_out)),
                    f"{tag}: outputs {files} vs CPU {sorted(os.listdir(cpu_out))}")
@@ -832,12 +805,12 @@ def phase_main(fail, workdir):
 
 def phase_times(net):
     """Per-site times at the main path's batch of 4, then the forward.
-    Returns the kernel's totals over one forward's 20 launches."""
+    Returns the kernel's totals over one forward's launches."""
     totals = {k: 0.0 for k in ("ms", "ms_bf16", "graph_ms", "graph_ms_bf16", "plain_ms",
                                "library_ms", "library_ms_bf16", "bound_ms", "ops_ms",
                                "bytes_ms", "bound_ffma_ms", "bound_tc_ms",
                                "bound_tc_bf16_ms")}
-    for si, site in enumerate(sites(batch=4)):
+    for si, (site, calls) in enumerate(model_sites("footprint", 4).items()):
         name, pad_mode, _, _, _, _, act = site
         x, w, b, r = site_inputs(site, torch.float32, seed=200 + si)
         xb, wb, bb, rb = site_inputs(site, torch.bfloat16, seed=200 + si)
@@ -858,13 +831,13 @@ def phase_times(net):
             t_plain = time_ms(lambda: fused_conv3x3_plain(x, w, b, r, pad_mode=pad_mode, act=act))
             t_lib = time_ms(lambda: library_call(site, x, wc, b))
             t_lib_bf16 = time_ms(lambda: library_call(site, xb, wbc, bb))
-        f32, bf16 = bounds(site, x, w, b, r), bounds(site, xb, wb, bb, rb)
+        f32 = bounds(site, x, w, b, r)
         bound_ffma = max(f32["ops_ffma_ms"], f32["bytes_ms"])
         bound_tc = max(f32["ops_tc_ms"], f32["bytes_ms"])
-        bound_tc_bf16 = max(bf16["ops_tc_ms"], bf16["bytes_ms"])
+        bound_tc_bf16 = forward_bound_s(site[:6], "bfloat16") * 1e3
         # the least time this card could take for the f32-accurate work
         t_ops = min(f32["ops_ffma_ms"], f32["ops_tc_ms"])
-        t_bound = max(t_ops, f32["bytes_ms"])
+        t_bound = forward_bound_s(site[:6], "float32") * 1e3
         bound_by = "operations" if t_ops >= f32["bytes_ms"] else "bytes"
         for key, v in (("ms", t_kernel), ("ms_bf16", t_kernel_bf16),
                        ("graph_ms", t_graph), ("graph_ms_bf16", t_graph_bf16),
@@ -873,14 +846,14 @@ def phase_times(net):
                        ("ops_ms", t_ops), ("bytes_ms", f32["bytes_ms"]),
                        ("bound_ffma_ms", bound_ffma), ("bound_tc_ms", bound_tc),
                        ("bound_tc_bf16_ms", bound_tc_bf16)):
-            totals[key] += 2 * v  # the site runs once in each decoder
+            totals[key] += calls * v
         emit("times", kernel=KERNEL["name"], site=name, shape=list(x.shape),
-             co=w.shape[0], launches_per_forward=2, route=ROUTES[torch.float32],
+             co=w.shape[0], launches_per_forward=calls, route=ROUTES[torch.float32],
              ms=t_kernel, graph_ms=t_graph, plain_ms=t_plain, library_ms=t_lib,
              bound_ffma_ms=bound_ffma, bound_tc_ms=bound_tc, bound_ms=t_bound,
              bound_by=bound_by, share_of_bound=t_bound / t_kernel,
              share_of_bound_graph=bound_tc / t_graph,
-             tflops_done=site_flops(site) / (t_kernel * 1e-3) / 1e12,
+             tflops_done=site_flops(site[:6]) / (t_kernel * 1e-3) / 1e12,
              route_bf16=ROUTES[torch.bfloat16], ms_bf16=t_kernel_bf16,
              graph_ms_bf16=t_graph_bf16,
              library_ms_bf16=t_lib_bf16, bound_tc_bf16_ms=bound_tc_bf16,
@@ -964,23 +937,6 @@ def wrapper_host_costs():
     return costs
 
 
-def kernel_category(name):
-    """Coarse bucket of a device kernel's name for the time breakdown."""
-    if "fused_conv3x3" in name:
-        return "fused_conv3x3"
-    if "nhwcToNchw" in name or "nchwToNhwc" in name:
-        return "cudnn layout transform"
-    if "bn_fw" in name:
-        return "batch norm"
-    if any(s in name for s in ("xmma", "fft", "convolve", "pointwise_mult_and_sum")):
-        return "cudnn conv"
-    if "reflection_pad" in name:
-        return "reflect pad"
-    if "copy" in name or "Cat" in name:
-        return "copy / cat"
-    return "other"
-
-
 def profile_forward(forward, json_name):
     """Device time by kernel over 5 calls of forward() at batch 16, and the
     share of the wall time in which no kernel ran; the full table in
@@ -1024,9 +980,10 @@ def phase_profile(fail, net):
     summary, rows = profile_forward(lambda: net(x, scales=("1/1",)), "profile_b16.json")
     names = [r["name"] for r in rows]
     per_forward = {k: sum(r["count"] for r in rows if k in r["name"]) for k in FWD_DEVICE_KERNELS}
-    fail.check(all(n == LAUNCHES_PER_FORWARD for n in per_forward.values()),
+    want = launches_per_forward("footprint")
+    fail.check(all(n == want for n in per_forward.values()),
                f"profile: the forward's device kernels per forward {per_forward}, expected "
-               f"{LAUNCHES_PER_FORWARD} of each ({len(names)} kernels profiled)")
+               f"{want} of each ({len(names)} kernels profiled)")
     emit("profile", **summary, forward_device_kernels_per_forward=per_forward, top=rows[:10])
 
 
@@ -1194,15 +1151,16 @@ def phase_train(fail, workdir):
         tm.train()
     torch.cuda.synchronize()
     launches = fused_conv3x3.launches
-    bwd = check_bwd_counts(fail, "train", [bwd_counts()], TRAIN_STEPS, LAUNCHES_PER_FORWARD,
+    per_forward = launches_per_forward("footprint")
+    bwd = check_bwd_counts(fail, "train", [bwd_counts()], TRAIN_STEPS, per_forward,
                            bf16=False)[0]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     n_val_events = sum(1 for mode, _, _ in tm.logged if mode == "val")
-    expected = LAUNCHES_PER_FORWARD * (TRAIN_STEPS + VAL_BATCHES * n_val_events)
+    expected = per_forward * (TRAIN_STEPS + VAL_BATCHES * n_val_events)
     fail.check(n_val_events == 1 and launches == expected,
                f"train: {launches} kernel launches, expected {expected} "
-               f"(16 per training forward, 16 per validation forward; "
+               f"({per_forward} per training forward and per validation forward; "
                f"{n_val_events} validation events)")
     fail.check(tm.step == TRAIN_STEPS, f"train: step {tm.step}, expected {TRAIN_STEPS}")
     rest = tm.evaluator.get_averaged_losses("train")
@@ -1334,7 +1292,7 @@ def site_backward(fail, batch):
     from torch.autograd import DeviceType
 
     rows = []
-    for si, site in enumerate(sites(batch)):
+    for si, site in enumerate(model_sites("footprint", batch)):
         name, pad_mode, _, _, _, _, act = site
         x, w, b, r = site_inputs(site, torch.float32, seed=300 + si)
         halves = w._base is not None  # conv1's halves: slices of one weight
@@ -1510,23 +1468,23 @@ def cudnn_batch_probe(batches=(4, 8, 12, 16)):
     return out
 
 
-def backward_totals(site_rows, decoders):
-    """A step's totals over its sites (each run once per decoder): the
-    forward kernel's and the Function's backward ms, the backward on cuDNN
+def backward_totals(site_rows, model):
+    """A step's totals over `model`'s sites (each row run as many times as
+    the model calls the kernel there: model_sites): the forward kernel's
+    and the Function's backward ms, the backward on cuDNN
     (cudnn_backward), and per backward kernel its ms, plain_ms,
     library_ms and bound_ms summed, the worst max_abs_err and bound_by."""
-    out = {"forward_ms_per_step": decoders * sum(r["forward_ms"] for r in site_rows),
-           "backward_ms_per_step": decoders * sum(r["backward_ms"] for r in site_rows),
-           "library_backward_ms_per_step": decoders * sum(r["library_backward_ms"]
-                                                          for r in site_rows)}
+    calls = {site[0]: n for site, n in model_sites(model, 1).items()}
+    reps = [calls[r["site"]] for r in site_rows]
+    out = {f"{key}_per_step": sum(c * r[key] for c, r in zip(reps, site_rows))
+           for key in ("forward_ms", "backward_ms", "library_backward_ms")}
     for k in BWD_KERNELS:
         rows = [r["kernels"][k["name"]] for r in site_rows]
-        t = {key: decoders * sum(r[key] for r in rows)
+        t = {key: sum(c * r[key] for c, r in zip(reps, rows))
              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+        ops = sum(c * r["bound_ms"] for c, r in zip(reps, rows) if r["bound_by"] == "operations")
         out[k["name"]] = {**t, "max_abs_err": max(r["max_abs_err"] for r in rows),
-                          "bound_by": "operations" if 2 * ops >= sum(
-                              r["bound_ms"] for r in rows) else "bytes",
+                          "bound_by": "operations" if 2 * ops >= t["bound_ms"] else "bytes",
                           "share_of_bound": t["bound_ms"] / t["ms"]}
     return out
 
@@ -1603,10 +1561,11 @@ def phase_train_times(fail, host, epoch):
     totals = {}
     for batch in (4, TRAIN_BATCH):
         site_rows = site_backward(fail, batch)
-        per_step = backward_totals(site_rows, decoders=2)
+        per_step = backward_totals(site_rows, "footprint")
         emit("train_times", kernel=KERNEL["name"], batch=batch,
-             launches_per_step_forward=LAUNCHES_PER_FORWARD, launches_per_step_backward=0,
-             backward_kernel_launches_per_step={k["name"]: LAUNCHES_PER_FORWARD
+             launches_per_step_forward=launches_per_forward("footprint"),
+             launches_per_step_backward=0,
+             backward_kernel_launches_per_step={k["name"]: launches_per_forward("footprint")
                                                 for k in BWD_KERNELS},
              sites=site_rows, reference="autograd of the plain version, f64, same tensors",
              bars={"y, x, residual": "1e-4 + 1e-4|ref|",
@@ -1659,14 +1618,15 @@ def phase_train_bf16(fail, run, workdir):
         tm.train()
     torch.cuda.synchronize()
     launches, bf16 = fused_conv3x3.launches, fused_conv3x3.bf16_launches
-    bwd = check_bwd_counts(fail, "train_bf16", [bwd_counts()], TRAIN_STEPS,
-                           LAUNCHES_PER_FORWARD, bf16=True)[0]
+    per_forward = launches_per_forward("footprint")
+    bwd = check_bwd_counts(fail, "train_bf16", [bwd_counts()], TRAIN_STEPS, per_forward,
+                           bf16=True)[0]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_val = sum(1 for mode, _, _ in tm.logged if mode == "val")
-    expected = LAUNCHES_PER_FORWARD * (TRAIN_STEPS + VAL_BATCHES * n_val)
+    expected = per_forward * (TRAIN_STEPS + VAL_BATCHES * n_val)
     fail.check(n_val == 1 and launches == bf16 == expected,
                f"train_bf16: {launches} kernel launches ({bf16} bf16), expected {expected}, "
-               f"all bf16 (16 per training forward, 16 per validation forward; "
+               f"all bf16 (one a site per training and per validation forward; "
                f"{n_val} validation events)")
     heads = (tm.step_config.s2d_head, tm.step_config.p4_head)
     fail.check(heads == (True, True), f"train_bf16: heads {heads} under 'auto', expected on")
@@ -1801,7 +1761,7 @@ def phase_pretrained(fail, run, workdir):
     """--pretrained_encoder: a synthetic torchvision-layout ResNet-34 .pth;
     one bf16 step from it through the trainer main.main builds.  Checks the
     step-0 encoder equals the file's weights exactly (and BN statistics),
-    20 launches for the step and 20 for its validation.  Returns them."""
+    a launch a site for the step and for its validation.  Returns them."""
     path = os.path.join(workdir, "resnet34_torchvision.pth")
     want = write_torchvision_resnet34(path, SEED)
     tm = trainer_for(run, ["--compute_dtype", "bfloat16", "--model_name", "smoke_pretrained",
@@ -1814,9 +1774,9 @@ def phase_pretrained(fail, run, workdir):
     tm.train()
     torch.cuda.synchronize()
     launches = fused_conv3x3.launches
-    check_bwd_counts(fail, "train_bf16 pretrained", [bwd_counts()], 1, LAUNCHES_PER_FORWARD,
-                     bf16=True)
-    expected = LAUNCHES_PER_FORWARD * (1 + VAL_BATCHES)
+    per_forward = launches_per_forward("footprint")
+    check_bwd_counts(fail, "train_bf16 pretrained", [bwd_counts()], 1, per_forward, bf16=True)
+    expected = per_forward * (1 + VAL_BATCHES)
     fail.check(exact and len(want) > 0,
                f"train_bf16: the step-0 encoder differs from {path}'s weights")
     fail.check(tm.step == 1 and launches == fused_conv3x3.bf16_launches == expected
@@ -1894,7 +1854,7 @@ def phase_train_bf16_times(fail, host, run):
         torch.cuda.empty_cache()
     trainer = trainer_for(run, ["--compute_dtype", "bfloat16", "--model_name", "smoke_timed"],
                           batches=TRAIN_TIMED_BATCHES + 1)
-    rate = steady_epoch_rate(fail, trainer, trainer.model_manager, LAUNCHES_PER_FORWARD)
+    rate = steady_epoch_rate(fail, trainer, "footprint", trainer.model_manager)
     loader_alone = loader_rate(trainer.train_loader)
     emit("train_bf16_times", model="FootprintNetwork-34, 192x640", steps=rows,
          trainer_imgs_per_s_with_loader_bf16=rate, loader_alone_imgs_per_s=loader_alone,
@@ -2087,17 +2047,6 @@ def byte_identical(run, folder):
     return out[True] == out[False] and len(out[True]) > 0, len(out[True])
 
 
-def union_ms(spans):
-    """Time (ms) in which at least one of `spans` ran, from (start_ns,
-    end_ns, stream) tuples: the union of their intervals, so spans that
-    overlap count once."""
-    total, end = 0, float("-inf")
-    for start, stop, _ in sorted(spans):
-        total += max(0, stop - max(start, end))
-        end = max(end, stop)
-    return total / 1e6
-
-
 def same_stream_overlaps(spans):
     """How many of `spans` start before the previous span on their stream
     has ended."""
@@ -2109,7 +2058,7 @@ def same_stream_overlaps(spans):
 
 
 def span_summary(spans):
-    return {"ms_union": union_ms(spans),
+    return {"ms_union": union_ns([span[:2] for span in spans]) / 1e6,
             "ms_summed": sum(stop - start for start, stop, _ in spans) / 1e6,
             "streams": len({stream for _, _, stream in spans}),
             "same_stream_overlaps": same_stream_overlaps(spans)}
@@ -2239,9 +2188,10 @@ def phase_dump(fail, workdir):
     # the main path: counts set to 0 just before, read just after
     manager, launches = drive("dump", argv("cuda", out=gpu_out), real)
     n_batches = -(-DUMP_FRAMES // DUMP_BATCH)
-    fail.check(launches == LAUNCHES_PER_FORWARD * n_batches,
+    per_batch = launches_per_forward("footprint")
+    fail.check(launches == per_batch * n_batches,
                f"dump: {launches} kernel launches for {n_batches} batches, expected "
-               f"{LAUNCHES_PER_FORWARD} per batch")
+               f"{per_batch} per batch")
     names = [f"{i:03d}.npy" for i in range(DUMP_FRAMES)]
     gpu_files = check_dump_files(fail, "dump", gpu_out, names, (4, HEIGHT, WIDTH))
     _, cpu_launches = drive("dump", argv("cpu", split_root=paths["splits_cpu"], out=cpu_out),
@@ -2274,7 +2224,7 @@ def phase_dump(fail, workdir):
         _, n = drive("dump", argv(device, "matterport", MATTERPORT_BATCH, out=out,
                                   hw=MATTERPORT_HW), real)
         mp_launches += n if device == "cuda" else 0
-        expected = LAUNCHES_PER_FORWARD * -(-MATTERPORT_FRAMES // MATTERPORT_BATCH)
+        expected = per_batch * -(-MATTERPORT_FRAMES // MATTERPORT_BATCH)
         fail.check(n == (expected if device == "cuda" else 0),
                    f"matterport dump on {device}: {n} launches")
         lines = readlines(os.path.join(paths["splits"], "matterport", "test.txt"))
@@ -2303,7 +2253,7 @@ def phase_dump(fail, workdir):
                                     out=gpu_out))
         return (InferenceManager if real else InMemoryInferenceManager)(opts)
 
-    times = time_dumps(fail, make_manager, run_into, workdir, LAUNCHES_PER_FORWARD)
+    times = time_dumps(fail, make_manager, run_into, workdir, per_batch)
     emit("dump", times=times, model="FootprintNetwork-34, f32, 192x640")
     return launches + mp_launches
 
@@ -2333,9 +2283,10 @@ def phase_seg_dump(fail, workdir):
              "Tester on in-memory images (no Pillow/PyYAML)")
     tester, launches = drive("seg", argv(), real)
     n_batches = -(-DUMP_FRAMES // DUMP_BATCH)
-    fail.check(launches == SEG_LAUNCHES_PER_FORWARD * n_batches,
+    per_batch = launches_per_forward("segmentor")
+    fail.check(launches == per_batch * n_batches,
                f"seg_dump: {launches} kernel launches for {n_batches} batches, expected "
-               f"{SEG_LAUNCHES_PER_FORWARD} per batch")
+               f"{per_batch} per batch")
     lines = sorted(readlines(os.path.join(paths["splits"], "kitti", "train.txt"))
                    + readlines(os.path.join(paths["splits"], "kitti", "val.txt")))
     names = [f"seq0/{'image_02' if side == 'l' else 'image_03'}/data/{frame.zfill(10)}.npy"
@@ -2371,7 +2322,7 @@ def phase_seg_dump(fail, workdir):
         opts = SegOptions().parse(argv(batch, "timed", paths["splits_timed"]))
         return (Tester if real else InMemoryTester)(opts)
 
-    times = time_dumps(fail, make_manager, run_into, workdir, SEG_LAUNCHES_PER_FORWARD)
+    times = time_dumps(fail, make_manager, run_into, workdir, per_batch)
     emit("seg_dump", times=times, model="Segmentor-34 with PSP, f32, 192x640")
     return launches
 
@@ -2534,7 +2485,8 @@ def phase_seg_train(fail, workdir):
                                    "--model_name", f"seg_timed_{name}"], timed=True)
 
     launches, runs, trainers = 0, {}, {}
-    expected = SEG_LAUNCHES_PER_FORWARD * (SEG_TRAIN_STEPS + SEG_VAL_BATCHES)
+    per_forward = launches_per_forward("segmentor")
+    expected = per_forward * (SEG_TRAIN_STEPS + SEG_VAL_BATCHES)
     for name, dtype in SEG_DTYPES.items():
         args = argv + ["--compute_dtype", name, "--model_name", f"seg_{name}"]
         # the main path: counts set to 0 just before, read just after
@@ -2549,15 +2501,15 @@ def phase_seg_train(fail, workdir):
         torch.cuda.synchronize()
         n, n_bf16 = fused_conv3x3.launches, fused_conv3x3.bf16_launches
         bwd = check_bwd_counts(fail, f"seg_train {name}", [bwd_counts()], SEG_TRAIN_STEPS,
-                               SEG_LAUNCHES_PER_FORWARD, bf16=dtype == torch.bfloat16)[0]
+                               per_forward, bf16=dtype == torch.bfloat16)[0]
         launches += n
         trainers[name] = trainer
         n_val = sum(1 for mode, _, _ in trainer.logged if mode == "val")
-        want_bf16 = SEG_LAUNCHES_PER_FORWARD * SEG_TRAIN_STEPS if dtype == torch.bfloat16 else 0
+        want_bf16 = per_forward * SEG_TRAIN_STEPS if dtype == torch.bfloat16 else 0
         fail.check(n_val == 1 and n == expected and n_bf16 == want_bf16,
                    f"seg_train {name}: {n} kernel launches ({n_bf16} bf16), expected "
-                   f"{expected} ({want_bf16} bf16): 5 per training forward, 5 per "
-                   f"validation forward; {n_val} validation events")
+                   f"{expected} ({want_bf16} bf16): {per_forward} per training forward "
+                   f"and per validation forward; {n_val} validation events")
         rest = trainer.evaluator.get_averaged_losses("train")
         fail.check(trainer.step == SEG_TRAIN_STEPS
                    and [(m, s_) for m, s_, _ in trainer.logged] == [("train", 0), ("val", 0)]
@@ -2700,7 +2652,7 @@ def site_backward_bf16(fail, batch):
     bf16 forward and backward timed, ms per call, beside the same backward
     on cuDNN in bf16 (library_backward_ms)."""
     rows = []
-    for si, site in enumerate(sites(batch)):
+    for si, site in enumerate(model_sites("segmentor", batch)):
         name, pad_mode, _, _, _, _, act = site
         x, w, b, r = site_inputs(site, torch.bfloat16, seed=500 + si)
         halves = w._base is not None
@@ -2774,8 +2726,8 @@ def site_backward_bf16(fail, batch):
     return rows
 
 
-def steady_epoch_rate(fail, trainer, saver=None, launches_per_batch=SEG_LAUNCHES_PER_FORWARD):
-    """imgs/s of trainer.train() from the end of its first step (its
+def steady_epoch_rate(fail, trainer, model, saver=None):
+    """imgs/s of trainer.train() of `model` from the end of its first step (its
     loading, cuDNN's first calls) to the end of its last: the loader,
     compaction, prefetcher and step of the trainer's own loop.  The trainer
     starts at step 1, past step 0's log event and validation, and the
@@ -2802,7 +2754,7 @@ def steady_epoch_rate(fail, trainer, saver=None, launches_per_batch=SEG_LAUNCHES
     trainer.train()
     n = len(trainer.train_loader)
     fail.check(len(stamps) == 2 and not trainer.logged
-               and fused_conv3x3.launches == launches_per_batch * n,
+               and fused_conv3x3.launches == launches_per_forward(model) * n,
                f"{type(trainer).__name__}: timed epoch of {n} batches logged "
                f"{trainer.logged}, {fused_conv3x3.launches} launches")
     return (n - 1) * trainer.opt.batch_size / (stamps[-1] - stamps[0])
@@ -2825,11 +2777,12 @@ def phase_seg_train_times(fail, host, timed_trainer):
     split, and one profiled step's busy time (a union of device intervals),
     beside the kernels of a cuDNN conv at the block2 post-concat conv's
     input, forward and backward (none: the fused kernel runs it); then the
-    bf16 route at each fused site at batch 12."""
+    bf16 route at each fused site at batch 4 and 12.  Returns the sites' rows
+    at batch 12 (site_backward_bf16)."""
     trainer_rates = {}
     for name in SEG_DTYPES:
         trainer = timed_trainer(name)
-        trainer_rates[name] = steady_epoch_rate(fail, trainer)
+        trainer_rates[name] = steady_epoch_rate(fail, trainer, "segmentor")
     loader_alone = loader_rate(trainer.train_loader)
     del trainer
     rows = {}
@@ -2878,14 +2831,13 @@ def phase_seg_train_times(fail, host, timed_trainer):
          timed_batches=SEG_TIMED_BATCHES, timed_frames=SEG_TIMED_BATCHES * SEG_TRAIN_BATCH)
     for batch in (4, SEG_TRAIN_BATCH):
         site_rows = site_backward_bf16(fail, batch)
-        per_step = backward_totals(site_rows, decoders=1)
         emit("seg_train_times", kernel=KERNEL["name"], route=ROUTES[torch.bfloat16],
              batch=batch, sites=site_rows,
              reference="autograd of the f32 plain version, same bf16-rounded tensors",
              bars={"y": "2e-2 + 2e-2|ref|",
                    "x, w, b, residual": "2e-2 max|ref| + 2e-2|ref|, ||d||/||ref|| < 2e-2"},
-             **per_step)
-    return per_step
+             **backward_totals(site_rows, "segmentor"))
+    return site_rows
 
 
 # --- GT generation --------------------------------------------------------------
@@ -3546,7 +3498,8 @@ def phase_export(fail, workdir):
     launches = {"served": (fused_conv3x3.launches, fused_conv3x3.bf16_launches)}
     files = sorted(os.listdir(os.path.join(served, "outputs")))
     batches = -(-len(files) // EXPORT_BATCH)
-    fail.check(len(files) > 0 and launches["served"] == (LAUNCHES_PER_FORWARD * batches,) * 2,
+    per_forward = launches_per_forward("footprint")
+    fail.check(len(files) > 0 and launches["served"] == (per_forward * batches,) * 2,
                f"artifact serving: {len(files)} files, (launches, bf16) "
                f"{launches['served']} for {batches} batches")
     for f in files:
@@ -3575,7 +3528,7 @@ def phase_export(fail, workdir):
         fail.check(np.isfinite(got).all() and got.shape == (EXPORT_CHECK_BATCH, 4, HEIGHT,
                                                             WIDTH), f"bf16 b2 on {device}")
         gaps[device] = channel_mae(got, live[device])
-    fail.check(launches["bf16_b2_cuda"] == (LAUNCHES_PER_FORWARD,) * 2
+    fail.check(launches["bf16_b2_cuda"] == (per_forward,) * 2
                and launches["bf16_b2_cpu"] == (0, 0), f"bf16 b2 launches {launches}")
     fail.check(bool((gaps["cuda"] <= 2 * gaps["cpu"] + 1e-3).all()),
                f"bf16 artifact on the card vs f32 live MAE per channel {gaps['cuda']}, "
@@ -3585,7 +3538,7 @@ def phase_export(fail, workdir):
     f32_mae = float(channel_mae(port_export.load_serving(a32).call(x), live["cuda"]).mean())
     torch.cuda.synchronize()
     launches["f32_b2_cuda"] = (fused_conv3x3.launches, fused_conv3x3.bf16_launches)
-    fail.check(f32_mae < 1e-4 and launches["f32_b2_cuda"] == (LAUNCHES_PER_FORWARD, 0),
+    fail.check(f32_mae < 1e-4 and launches["f32_b2_cuda"] == (per_forward, 0),
                f"f32 artifact vs live f32 forward MAE {f32_mae}, launches "
                f"{launches['f32_b2_cuda']}")
 
@@ -3601,7 +3554,7 @@ def phase_export(fail, workdir):
     seg_card = manager.predict_arrays([f"frame{i}" for i in range(len(frames))], frames)
     torch.cuda.synchronize()
     launches["seg_served"] = (fused_conv3x3.launches, fused_conv3x3.bf16_launches)
-    fail.check(launches["seg_served"] == (SEG_LAUNCHES_PER_FORWARD,) * 2
+    fail.check(launches["seg_served"] == (launches_per_forward("segmentor"),) * 2
                and seg_card.shape == (SEG_EXPORT_BATCH, HEIGHT, WIDTH)
                and seg_card.dtype == np.float16 and np.isfinite(seg_card).all(),
                f"Segmentor artifact: {seg_card.shape} {seg_card.dtype}, launches "
@@ -3847,7 +3800,7 @@ def dp_profiled(fn, device, span_names=DP_REDUCE_SPANS):
     syncs = merged((e.start_ns(), e.end_ns()) for e in host if e.name() in DP_SYNC_CALLS)
     spans_ms = sum(end - start for start, end in in_spans) / 1e6
     sync_ms = overlap_ns(in_spans, syncs) / 1e6
-    busy_ms = union_ms(device_spans(raw))
+    busy_ms = union_ns([span[:2] for span in device_spans(raw)]) / 1e6
     top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
     return {"profiled_wall_ms": wall_ms, "busy_ms_union": busy_ms,
             "idle_ms": wall_ms - busy_ms,
@@ -3977,15 +3930,15 @@ def dp_torchrun(fail, run, workdir):
     counts = re.findall(r"rank 0: (\d+) fused_conv3x3 launches in this process, (\d+) bf16",
                         out)
     launches = int(counts[0][0]) if len(counts) == 1 else 0
-    expected = LAUNCHES_PER_FORWARD * (TRAIN_STEPS + VAL_BATCHES)
+    expected = launches_per_forward("footprint") * (TRAIN_STEPS + VAL_BATCHES)
     fail.check(launches == expected, f"dp: torchrun rank 0 launched the kernel {counts}, "
                                      f"expected {expected}")
     bwd = re.findall(r"rank 0: .*backward: (\d+) fused_conv3x3_dgrad, (\d+) "
                      r"fused_conv3x3_wgrad", out)
     bwd = [{"fused_conv3x3_dgrad": [int(d), 0], "fused_conv3x3_wgrad": [int(w), 0]}
            for d, w in bwd]
-    check_bwd_counts(fail, "dp torchrun rank 0", bwd, TRAIN_STEPS, LAUNCHES_PER_FORWARD,
-                     bf16=False)
+    check_bwd_counts(fail, "dp torchrun rank 0", bwd, TRAIN_STEPS,
+                     launches_per_forward("footprint"), bf16=False)
     losses = [float(v) for v in re.findall(r"Epoch 0 -- Batch 0 -- Loss (\S+)", out)]
     fail.check(len(losses) == 1 and np.isfinite(losses).all(), f"dp: logged losses {losses}")
     weights = os.path.join(workdir, "train_logs", "smoke_dp", "models", "weights_0")
@@ -4028,9 +3981,10 @@ def phase_dp(fail, run, workdir, host, f32_check):
         fail.check(False, f"dp: dryrun_multichip({DP_WORLD}, device='cuda'): {e}")
         dry = []
     seconds["dryrun"] = time.perf_counter() - t0
+    fp, seg = launches_per_forward("footprint"), launches_per_forward("segmentor")
     fail.check(len(dry) == DP_WORLD and all(
-        r["f32"]["launches"] == LAUNCHES_PER_FORWARD and r["f32"]["bf16_launches"] == 0
-        and r["bf16"]["launches"] == r["bf16"]["bf16_launches"] == LAUNCHES_PER_FORWARD
+        r["f32"]["launches"] == fp and r["f32"]["bf16_launches"] == 0
+        and r["bf16"]["launches"] == r["bf16"]["bf16_launches"] == fp
         for r in dry), f"dp: dryrun launches per rank {dry}")
     launches_b = sum(r["f32"]["launches"] + r["bf16"]["launches"] for r in dry)
 
@@ -4066,25 +4020,25 @@ def phase_dp(fail, run, workdir, host, f32_check):
                    f"dp {tag} world 2: replicas differ: {got['digests']}")
     per_rank = {"footprint": [r["check"]["launches"] for r in w2],
                 "segmentor": [r["segmentor"]["launches"] for r in w2]}
-    fail.check(w1["check"]["launches"] == LAUNCHES_PER_FORWARD
-               and per_rank["footprint"] == [LAUNCHES_PER_FORWARD] * DP_WORLD
-               and per_rank["segmentor"] == [SEG_LAUNCHES_PER_FORWARD] * DP_WORLD,
+    fail.check(w1["check"]["launches"] == fp
+               and per_rank["footprint"] == [fp] * DP_WORLD
+               and per_rank["segmentor"] == [seg] * DP_WORLD,
                f"dp: check-step launches world 1 {w1['check']['launches']}, world 2 {per_rank}")
     launches_cd = (w1["check"]["launches"] + sum(per_rank["footprint"])
                    + sum(per_rank["segmentor"]))
     bwd = {"world_1": check_bwd_counts(fail, "dp world 1", [w1["check"]["bwd_launches"]], 1,
-                                       LAUNCHES_PER_FORWARD, bf16=False),
+                                       fp, bf16=False),
            "world_2": check_bwd_counts(fail, "dp world 2", [r["check"]["bwd_launches"]
                                                             for r in w2], 1,
-                                       LAUNCHES_PER_FORWARD, bf16=False),
+                                       fp, bf16=False),
            "segmentor_world_2": check_bwd_counts(
                fail, "dp segmentor world 2", [r["segmentor"]["bwd_launches"] for r in w2], 1,
-               SEG_LAUNCHES_PER_FORWARD, bf16=False),
+               seg, bf16=False),
            "dryrun_per_rank": check_bwd_counts(
                fail, "dp dryrun", [r[k]["bwd_launches"] for r in dry for k in ("f32",)], 1,
-               LAUNCHES_PER_FORWARD, bf16=False) + check_bwd_counts(
+               fp, bf16=False) + check_bwd_counts(
                fail, "dp dryrun bf16", [r[k]["bwd_launches"] for r in dry for k in ("bf16",)],
-               1, LAUNCHES_PER_FORWARD, bf16=True)}
+               1, fp, bf16=True)}
     emit("dp", torchrun=torchrun, backward_kernel_launches_per_rank=bwd,
          dryrun={"world": DP_WORLD, "backend": "gloo", "device": "cuda:0 (all ranks)",
                  "shape": [HEIGHT, WIDTH], "depth": 34, "images_per_rank": 2,
@@ -4405,7 +4359,7 @@ def spatial_train_checks(fail, case, model, n, hw, got, ref, spatial, smi):
     ranks' spatial_train, `ref`: the one-process one); emits the
     spatial_train and spatial_train_times lines and returns the kernel's
     launches in the check steps."""
-    per_forward = LAUNCHES_PER_FORWARD if model == "footprint" else SEG_LAUNCHES_PER_FORWARD
+    per_forward = launches_per_forward(model)
     f32, single = got[0]["float32"], ref["float32"]
     grads = {k: torch.from_numpy(v) for k, v in f32["grads"].items()}
     single_grads = {k: torch.from_numpy(v) for k, v in single["grads"].items()}
@@ -4503,7 +4457,7 @@ def phase_spatial(fail, smi):
         for case, model, n, hw, _ in cases:
             got = [r[case] for r in ranks]
             ref = spatial_single(model, hosts[case])
-            per_forward = LAUNCHES_PER_FORWARD if model == "footprint" else SEG_LAUNCHES_PER_FORWARD
+            per_forward = launches_per_forward(model)
             f32 = [g["f32"] for g in got]
             fail.check(all(g["losses"] == f32[0]["losses"] for g in f32),
                        f"spatial {case}: the ranks' losses differ")
@@ -4615,21 +4569,23 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         seg_train_launches, seg_host, timed_trainer = timed(
             "seg_train", phase_seg_train, fail, workdir)
-        bf16_sites = timed("seg_train_times", phase_seg_train_times, fail, seg_host,
+        bf16_rows = timed("seg_train_times", phase_seg_train_times, fail, seg_host,
                            timed_trainer)
     with tempfile.TemporaryDirectory() as workdir:
         gt_runs = timed("gt", phase_gt, fail, workdir)
         timed("gt_times", phase_gt_times, fail, gt_runs, smi)
-    # the FootprintNetwork's bf16 training runs the same 5 site shapes in
-    # each of its 2 decoders
+    # the FootprintNetwork's bf16 training runs the Segmentor decoder's sites
+    # in each of its decoders
+    bf16_step = backward_totals(bf16_rows, "footprint")
     emit("train_bf16_times", kernel=KERNEL["name"], route=ROUTES[torch.bfloat16],
-         batch=TRAIN_BATCH, launches_per_step_forward=LAUNCHES_PER_FORWARD,
-         forward_ms_per_step=2 * bf16_sites["forward_ms_per_step"],
-         backward_ms_per_step=2 * bf16_sites["backward_ms_per_step"],
-         library_backward_ms_per_step=2 * bf16_sites["library_backward_ms_per_step"],
-         backward_kernels_ms_per_step={k["name"]: 2 * bf16_sites[k["name"]]["ms"]
+         batch=TRAIN_BATCH, launches_per_step_forward=launches_per_forward("footprint"),
+         forward_ms_per_step=bf16_step["forward_ms_per_step"],
+         backward_ms_per_step=bf16_step["backward_ms_per_step"],
+         library_backward_ms_per_step=bf16_step["library_backward_ms_per_step"],
+         backward_kernels_ms_per_step={k["name"]: bf16_step[k["name"]]["ms"]
                                        for k in BWD_KERNELS},
-         source="phase seg_train_times' per-site bf16 times at batch 12, x2 decoders")
+         source="phase seg_train_times' per-site bf16 times at batch 12, at the "
+                "FootprintNetwork's calls a site")
     launches += (train_launches + dp_launches + spatial_launches + export_launches
                  + dump_launches + seg_launches + seg_train_launches)
     max_abs = max(max_abs, spatial_worst)
@@ -4647,7 +4603,7 @@ def main():
                              else "bytes"),
                 "library_ms": totals["library_ms"]}]
     # the backward kernels: their launches on the training paths, their
-    # times per FootprintNetwork f32 step at batch 12 (20 launches each)
+    # times per FootprintNetwork f32 step at batch 12 (a launch a site each)
     for k in BWD_KERNELS:
         t = bwd_totals[TRAIN_BATCH][k["name"]]
         kernels.append({**k, "launches": BWD_LAUNCHES[k["name"]],

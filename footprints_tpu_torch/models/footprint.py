@@ -29,12 +29,14 @@ constraint, so here each is the standard head, then packed
 
 import torch
 import torch.nn as nn
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core.ops import p4_pack, s2d_pack
 from ..nn import init as nn_init
 from ..nn import resnet
 from ..nn.blocks import (ConvBlock, ConvUpsampleAndConcatBlock, OutConvBlock,
                          decoder_tail)
+from ..ops.fused_conv import fused_conv3x3_op
 from ..telemetry import span
 
 SCALES = ("1/8", "1/4", "1/2", "1/1")
@@ -55,6 +57,53 @@ FUSED_BLOCKS = (2, 4)
 # pick their FFT algorithm at batch 12
 FUSED_PRE_CONCAT = (3,)
 
+# a site's name from its weight's parameter name: the block's ConvBlocks as
+# "pre" and "post", the decoder's tail ConvBlock as "tail"
+_SITE_NAMES = (("_concat_conv.", "."), ("outconv4.0.", "tail."))
+
+
+class _RecordSites(TorchDispatchMode):
+    """Records the arguments of every call of the fused kernel's op."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is fused_conv3x3_op:
+            self.calls.append(args)
+        return func(*args, **(kwargs or {}))
+
+
+def kernel_sites(net, batch, height, width):
+    """The fused kernel's call sites in one forward of ``net`` (a
+    FootprintNetwork or a Segmentor, on any device) at ``batch`` x
+    ``height`` x ``width`` with every head, in call order, one launch each:
+    [(name, pad_mode, input NHWC shape, Co, residual?, bias?, act)].
+
+    Read from the forward itself, run on the meta device on meta twins of
+    the parameters and buffers (nothing is allocated or launched, ``net``
+    is left as it was) under a dispatch mode that records each call of the
+    op.  A call's weight, a parameter or an input-channel slice view of
+    one, names its site: ``mask_decoder.block2.post.conv1.up_half`` (the
+    first input channels) and ``.skip_half``, ``decoder.tail.conv1``."""
+    twins = {k: torch.empty_like(v, device="meta")
+             for k, v in [*net.named_parameters(), *net.named_buffers()]}
+    names = {id(v): k.removesuffix(".weight") for k, v in twins.items()}
+    with torch.no_grad(), _RecordSites() as record:
+        torch.func.functional_call(net, twins, (torch.empty(batch, height, width, 3,
+                                                            device="meta"),))
+    sites = []
+    for x, w, b, residual, pad_mode, act in record.calls:
+        name = names[id(w if w._base is None else w._base)]
+        for part, short in _SITE_NAMES:
+            name = name.replace(part, short)
+        if w._base is not None:
+            name += ".skip_half" if w.storage_offset() else ".up_half"
+        sites.append((name, pad_mode, tuple(x.shape), w.shape[0], residual is not None,
+                      b is not None, act))
+    return sites
+
 
 class SkipDecoder(nn.Module):
     """Monodepth2-style U-Net decoder over 5 encoder features.  ``in_ch``
@@ -62,11 +111,10 @@ class SkipDecoder(nn.Module):
     widens it); ``out_scales`` upsample the '1/8', '1/4' and '1/2' heads
     to full resolution (1, 1, 1 leaves them at their native scales).
 
-    Blocks 2 and 4 (``FUSED_BLOCKS``) run their post-concat ConvBlock
-    through the CUDA kernel, 3 launches each, block3 (``FUSED_PRE_CONCAT``)
-    its pre-concat ConvBlock, 2, and the tail ConvBlock 2: 10 launches per
-    decoder per forward; the other pre-concat ConvBlocks and blocks 1 and
-    3's post-concat ConvBlocks stay on cuDNN."""
+    The blocks of ``FUSED_BLOCKS`` run their post-concat ConvBlock through
+    the CUDA kernel, those of ``FUSED_PRE_CONCAT`` their pre-concat
+    ConvBlock, and so does the tail ConvBlock; the other ConvBlocks stay on
+    cuDNN.  ``kernel_sites`` lists the calls a forward makes."""
 
     def __init__(self, enc_channels, apply_sigmoid, out_ch=2, in_ch=None,
                  out_scales=(8, 4, 2)):

@@ -10,9 +10,9 @@ pipeline (counterpart of footprints_tpu/models/segmentor.py).
     scale; the 4 *logit* maps come back at their native scales (1/8, 1/4,
     1/2 and 1/1 of the input), not upsampled: the training loop resizes them
 
-The post-concat ConvBlocks of block2 and block4, block3's pre-concat
-ConvBlock and the tail ConvBlock run through the CUDA kernel, as in the
-FootprintNetwork's decoders: 10 launches per forward (3 + 3 + 2 + 2).
+The decoder's ConvBlocks run through the CUDA kernel where the
+FootprintNetwork's do (models/footprint.py: ``FUSED_BLOCKS``,
+``FUSED_PRE_CONCAT`` and the tail; ``kernel_sites`` lists the calls).
 Parameter names follow the reference's state_dict (``encoder.*``,
 ``decoder.block{i}.*``, ``decoder.outconv{1..4}.*``,
 ``decoder.PSP.block{1..4}.reduce`` for pool sizes 1, 2, 4, 6).

@@ -10,17 +10,17 @@ them (use_bn=False), so a reference state_dict loads strictly.  They are
 frozen (``requires_grad=False``): the JAX pytree has no such leaves, so the
 optimizer never sees them.
 
-Four of the decoder's ConvBlocks run through the hand-written CUDA kernel
+Some of the decoder's ConvBlocks run through the hand-written CUDA kernel
 (ops/fused_conv.py), every time, at every batch, in training as in serving:
-the post-concat ConvBlocks of block2 and block4
-(``ConvUpsampleAndConcatBlock(fused=True)``, 3 launches each), block3's
-pre-concat ConvBlock (``fused_pre=True``: ``ConvBlock(fused=True)``, 2) and
-the tail ConvBlock (``decoder_tail``, 2), 10 launches per decoder per
-forward.  Their backward is the op's registered autograd: the hand-written
-dgrad and wgrad kernels, 10 launches each per decoder per step.  The other
-convs are ``F.pad(reflect)`` + ``F.conv2d``.  Tensors are NCHW views of
-channels_last memory; the kernel sites permute them to NHWC views, and a
-fused block returns the NCHW view of the kernel's NHWC output.
+post-concat ConvBlocks (``ConvUpsampleAndConcatBlock(fused=True)``),
+pre-concat ConvBlocks (``fused_pre=True``: ``ConvBlock(fused=True)``) and
+the tail ConvBlock (``decoder_tail``).  models/footprint.py says which
+(``FUSED_BLOCKS``, ``FUSED_PRE_CONCAT``), and its ``kernel_sites`` lists
+the calls a forward makes.  Their backward is the op's registered autograd:
+the hand-written dgrad and wgrad kernels, one launch of each per forward
+call.  The other convs are ``F.pad(reflect)`` + ``F.conv2d``.  Tensors are
+NCHW views of channels_last memory; the kernel sites permute them to NHWC
+views, and a fused block returns the NCHW view of the kernel's NHWC output.
 
 Inside ``parallel.halo.shard_rows`` each block runs on a row shard: the
 reflect convs and the bilinear heads exchange their halo rows
@@ -69,8 +69,8 @@ def _reflect_site(conv, x, mesh):
 
 class ConvBlock(nn.Module):
     """[reflect-pad(1) -> 3x3 conv -> ELU] x 2.  fused=True runs both convs
-    through the CUDA kernel's 'reflect' route, bias and ELU fused: 2
-    launches, and no padded tensor exists."""
+    through the CUDA kernel's 'reflect' route, bias and ELU fused: a launch
+    a conv, and no padded tensor exists."""
 
     def __init__(self, in_ch, out_ch, *, fused=False):
         super().__init__()
@@ -108,10 +108,10 @@ class ConvUpsampleAndConcatBlock(nn.Module):
     concat(up(x), skip) splits linearly into an up-conv of x with the first
     ``out_ch`` input channels of the weight plus a conv of skip with the
     rest, so neither the upsampled, the concatenated nor the padded tensor
-    exists; then conv2.  3 launches: the up-conv, the skip's conv with the
-    bias, the up-conv as its residual and ELU, and conv2 with ELU.
+    exists; then conv2.  A launch each: the up-conv, the skip's conv with
+    the bias, the up-conv as its residual and ELU, and conv2 with ELU.
     fused_pre=True runs the pre-concat ConvBlock through the kernel
-    (``ConvBlock(fused=True)``, 2 launches).
+    (``ConvBlock(fused=True)``).
 
     On either route, what follows the pre-concat ConvBlock is the span
     ``decoder.post_concat``, timed on the card while tracing.

@@ -289,9 +289,8 @@ def footprint_eval_rank(mesh, state_dict_path, batch):
     """On this rank's shard of ``batch``, on its device: the
     FootprintNetwork-18's spatial eval losses in f32 and in bf16 with the
     packed heads, its rows of the f32 '1/1' map, and the kernel's launches
-    in each eval: on the card 20, every site on the rank's rows (10 a
-    decoder: block2's post-concat ConvBlock 3, block3's pre-concat
-    ConvBlock 2, block4's 3, the tail's 2), 0 on the CPU."""
+    in each eval: on the card one a site (models/footprint.py:
+    kernel_sites), every site on the rank's rows, 0 on the CPU."""
     net = _footprint_net(state_dict_path, mesh.device)
     local = shard_batch(mesh, batch)
     out = {"shard": {k: v.cpu().numpy() for k, v in local.items()}}
@@ -411,10 +410,8 @@ def spatial_step_rank(mesh, model, state_dict_path, batch, config=None):
     keywords) or Segmentor-18 (PSP; ``config``: {'compute_dtype': ...}) from
     the weights in ``state_dict_path``, on this rank's shard of ``batch`` on
     its device: ``_step_result``, this rank's forward and backward
-    exchanges and the kernel's forward launches: on the card 20 for the
-    FootprintNetwork and 10 for the Segmentor (10 sites a decoder: block2's
-    post-concat ConvBlock 3, block3's pre-concat ConvBlock 2, block4's 3,
-    the tail's 2), 0 on the CPU."""
+    exchanges and the kernel's forward launches: on the card one a site of
+    the model (models/footprint.py: kernel_sites), 0 on the CPU."""
     config = config or {}
     if model == "footprint":
         net = _footprint_net(state_dict_path, mesh.device)

@@ -11,6 +11,7 @@ the JAX f32 forward at most twice that of the JAX bf16 serving forward
 + 1e-3 (bf16 rounds at other places in the two frameworks); the Segmentor's
 f16 map within 1e-3 of the JAX one (tests/test_export.py's bar)."""
 
+import collections
 import json
 import os
 import subprocess
@@ -33,6 +34,7 @@ from footprints_tpu_torch.convert import (jax_params_from_state_dict,
                                           segmentor_state_dict_from_jax_params,
                                           state_dict_from_jax_params)
 from footprints_tpu_torch.models import FootprintNetwork, Segmentor
+from footprints_tpu_torch.models.footprint import kernel_sites
 from footprints_tpu_torch.ops import fused_conv as fc
 
 from ._torch_port import _randomise_bn
@@ -255,25 +257,24 @@ def test_artifact_loads_with_no_model_code(f32_artifact):
 
 
 def test_exported_graph_hands_the_op_its_layouts(f32_artifact):
-    """Every kernel call in the program gets an NHWC-contiguous x and a
-    weight with strides (s, 9, 3, 1): the conv1 halves as input-channel
-    slice views of block2's [128, 256, 3, 3] and block4's [64, 128, 3, 3]
-    weights; block3's pre-concat weights, [64, 128, 3, 3] and [64, 64, 3,
-    3], whole."""
+    """The program calls the kernel at the model's sites (kernel_sites), in
+    order, and every call gets an NHWC-contiguous x and a weight with
+    strides (s, 9, 3, 1): the post-concat conv1's two halves as
+    input-channel slice views of their [Co, 2Ci, 3, 3] weight, every other
+    weight whole."""
     program = torch.export.load(f32_artifact[0])
     calls = [n for n in program.graph.nodes
              if n.target is torch.ops.footprints.fused_conv3x3.default]
-    # 10 sites x 2 decoders: block2's and block4's post-concat ConvBlocks 3
-    # each, block3's pre-concat ConvBlock 2, the tail's 2
-    assert len(calls) == 20
-    slices = {128: 0, 64: 0}
+    sites = kernel_sites(FootprintNetwork(DEPTH, device="meta"), B, H, W)
+    assert [tuple(node.args[0].meta["val"].shape) for node in calls] == [s[2] for s in sites]
+    slices = collections.Counter()
     for node in calls:
         x, w = (a.meta["val"] for a in node.args[:2])
         assert x.is_contiguous() and x.dim() == 4
         assert w.stride()[1:] == (9, 3, 1) and w.stride(0) >= 9 * w.shape[1]
         if w.stride(0) == 9 * 2 * w.shape[1]:
             slices[w.shape[1]] += 1
-    assert slices == {128: 4, 64: 4}  # the up and skip halves, in each decoder
+    assert slices == collections.Counter(s[2][3] for s in sites if s[0].endswith("_half"))
 
 
 @pytest.mark.parametrize("pad_mode", ["reflect", "up2_reflect"])

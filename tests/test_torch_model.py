@@ -3,6 +3,8 @@ manager held against the JAX package (and the test-only torch oracle of the
 reference).  Whole-model bar: MAE < 1e-4 at every scale, the bar of
 tests/test_parity_full_res.py."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,8 @@ from footprints_tpu_torch.checkpoint import load_checkpoint
 from footprints_tpu_torch.convert import state_dict_from_jax_params
 from footprints_tpu_torch.model_manager import ModelManager
 from footprints_tpu_torch.models import SCALES, FootprintNetwork, Segmentor
-from footprints_tpu_torch.ops import fused_conv3x3
+from footprints_tpu_torch.models.footprint import FUSED_BLOCKS, FUSED_PRE_CONCAT, kernel_sites
+from footprints_tpu_torch.ops import fused_conv, fused_conv3x3
 
 from . import torch_oracle
 from ._torch_port import jax_model, nchw
@@ -80,6 +83,55 @@ def test_decoders_fuse_block2_and_block4_only(depth):
     for decoder in decoders:
         assert [getattr(decoder, f"block{i}").fused for i in range(1, 5)] == [
             False, True, False, True]
+
+
+def _record_kernel_calls(monkeypatch):
+    """Records every call of the fused kernel at the wrappers' entry
+    (ops/fused_conv.py:_fused) as (pad_mode, input NHWC shape, Co,
+    residual?, bias?, act), and lets it run."""
+    calls, run = [], fused_conv._fused
+
+    def record(x, w, b, residual, pad_mode, act):
+        calls.append((pad_mode, tuple(x.shape), w.shape[0], residual is not None,
+                      b is not None, act))
+        return run(x, w, b, residual, pad_mode, act)
+
+    monkeypatch.setattr(fused_conv, "_fused", record)
+    return calls
+
+
+@pytest.mark.parametrize("model,depth,hw", [
+    ("footprint", 18, (192, 640)), ("footprint", 34, (192, 640)), ("footprint", 50, (192, 640)),
+    ("segmentor_psp", 34, (192, 640)), ("segmentor", 34, (192, 640)),
+    ("footprint", 34, (512, 640))],
+    ids=lambda v: f"{v[0]}x{v[1]}" if isinstance(v, tuple) else str(v))
+def test_kernel_sites_are_the_calls_of_a_forward(monkeypatch, model, depth, hw):
+    """kernel_sites lists the fused kernel's calls that a CPU forward with
+    every head makes, in order, with their pad modes, input shapes, Co,
+    residual, bias and activation; a decoder's sites are the post-concat
+    ConvBlocks of FUSED_BLOCKS (3 calls each: conv1's two halves, conv2),
+    the pre-concat ConvBlocks of FUSED_PRE_CONCAT (2) and the tail (2)."""
+    net = (FootprintNetwork(depth) if model == "footprint"
+           else Segmentor(depth, use_psp=model == "segmentor_psp"))
+    calls = _record_kernel_calls(monkeypatch)
+    with torch.no_grad():
+        net(torch.rand(1, *hw, 3, generator=torch.Generator().manual_seed(depth)))
+    monkeypatch.undo()
+    sites = kernel_sites(net, 1, *hw)
+    assert [site[1:] for site in sites] == calls
+    decoders = 2 if model == "footprint" else 1
+    per_decoder = 3 * len(FUSED_BLOCKS) + 2 * len(FUSED_PRE_CONCAT) + 2
+    assert len(sites) == decoders * per_decoder
+    names = [site[0] for site in sites]
+    assert len(set(names)) == len(names)
+    blocks = {re.match(r"\w+\.(block\d\.(?:pre|post)|tail)\.", name).group(1) for name in names}
+    assert blocks == ({f"block{i}.post" for i in FUSED_BLOCKS}
+                      | {f"block{i}.pre" for i in FUSED_PRE_CONCAT} | {"tail"})
+    for name, pad_mode, _, _, residual, bias, act in sites:
+        if name.endswith("up_half"):  # conv1's first input channels, upsampled
+            assert (pad_mode, residual, bias, act) == ("up2_reflect", False, False, "none")
+        elif name.endswith("skip_half"):  # the rest, with the up half as its residual
+            assert (pad_mode, residual, bias) == ("reflect", True, True)
 
 
 def test_forward_keeps_channels_last_activations():

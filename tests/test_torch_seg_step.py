@@ -261,7 +261,7 @@ def test_bf16_step_differs_from_f32():
     assert 1e-7 < abs(m16["loss"].item() - m32["loss"].item()) < 1e-2
 
 
-# --- the 5 fused sites in bf16 ----------------------------------------------------
+# --- 5 kinds of kernel call in bf16 at small shapes, against the JAX custom_vjps --
 
 @pytest.fixture
 def _interpret_mode(monkeypatch):
