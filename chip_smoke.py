@@ -20,8 +20,10 @@ final result line:
               it through footprints_tpu_torch.predict_simple on the GPU: one
               image, then folder mode over test_data/, each run again with
               --device cpu.  Checks each .npy is a finite [4,192,640] map
-              within MAE 1e-4 of its CPU twin, that the kernel ran once a
-              site per GPU batch, and that the GPU forward matches the CPU forward
+              within MAE 1e-4 of its CPU twin, that each GPU run captured
+              one CUDA graph of the forward and called the kernel twice a
+              site (the capture's warm-up and the capture; a replay calls
+              no wrapper), and that the GPU forward matches the CPU forward
               (MAE < 1e-4 at every scale);
   5. times    at each site, the mean time per call over 20 eager calls
               (CUDA events, the method of the port's first kernel) of the
@@ -321,7 +323,7 @@ import torch.nn.functional as F
 from footprints_tpu_torch import export as port_export
 from footprints_tpu_torch import main as port_main
 from footprints_tpu_torch import native as port_native
-from footprints_tpu_torch import predict_simple
+from footprints_tpu_torch import predict_simple, telemetry
 from footprints_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from footprints_tpu_torch.convert import segmentor_jax_params_from_state_dict
 from footprints_tpu_torch.core.config import readlines
@@ -741,10 +743,16 @@ def phase_main(fail, workdir):
         targets = {"arrays": np.random.RandomState(SEED).rand(
             HEIGHT, WIDTH, 3).astype(np.float32)}
 
+    def captures():
+        """predict_simple's graph captures so far."""
+        total = telemetry.totals().get("predict.graph.capture")
+        return total.count if total else 0
+
     def serve(tag, device):
-        """One CLI run on `device`: (its output dir, its kernel launches)."""
+        """One CLI run on `device`: (its output dir, its kernel launches,
+        its graph captures)."""
         out = os.path.join(workdir, f"{tag}_{device}")
-        before = fused_conv3x3.launches
+        before, captured = fused_conv3x3.launches, captures()
         if have_pil:
             predict_simple.main(["--image", targets[tag], "--model_path", weights,
                                  "--no_save_vis", "--save_dir", out,
@@ -753,7 +761,8 @@ def phase_main(fail, workdir):
             predict_simple.InferenceManager(
                 None, out, save_visualisations=False, model_load_folder=weights,
                 device=device).predict_arrays([tag], [targets[tag]])
-        return os.path.join(out, "outputs"), fused_conv3x3.launches - before
+        return (os.path.join(out, "outputs"), fused_conv3x3.launches - before,
+                captures() - captured)
 
     # each GPU run has a CPU twin (the plain versions) on the same input and
     # weights; the CPU runs launch no kernel
@@ -763,10 +772,15 @@ def phase_main(fail, workdir):
     launches = fused_conv3x3.launches
 
     n_files, worst_mae, per_batch = 0, 0.0, launches_per_forward("footprint")
-    for tag, (out, n_launch), (cpu_out, n_cpu) in runs:
-        fail.check(n_launch == per_batch and n_cpu == 0,
-                   f"{tag}: {n_launch} kernel launches for one batch on the GPU "
-                   f"(expected {per_batch}), {n_cpu} on the CPU")
+    for tag, (out, n_launch, n_graph), (cpu_out, n_cpu, n_cpu_graph) in runs:
+        # one batch of 4 a run: its graph's warm-up and capture call the
+        # kernel once a site each
+        fail.check(n_launch == 2 * per_batch and n_cpu == 0,
+                   f"{tag}: {n_launch} kernel calls for one batch on the GPU "
+                   f"(expected {2 * per_batch}), {n_cpu} on the CPU")
+        fail.check(n_graph == 1 and n_cpu_graph == 0,
+                   f"{tag}: {n_graph} graph captures on the GPU (expected 1), "
+                   f"{n_cpu_graph} on the CPU")
         files = sorted(os.listdir(out))
         fail.check(len(files) > 0 and files == sorted(os.listdir(cpu_out)),
                    f"{tag}: outputs {files} vs CPU {sorted(os.listdir(cpu_out))}")

@@ -21,7 +21,10 @@ running (a traced stretch of the benchmark, the trainer's
     without conversion;
   * on a CUDA ``device``, records a timing event on that device's current
     stream as it begins and as it ends: ``spans()`` gives the span's
-    ``device_ms`` once both have completed.
+    ``device_ms`` once both have completed.  Not while that stream is
+    capturing a CUDA graph (``predict_simple``'s capture of the forward):
+    an event recorded there would be part of the graph, so such a span has
+    no ``device_ms``.
 
 With no profiler running it does none of these.  Nothing here is a switch:
 the profiler's own state decides.
@@ -106,7 +109,8 @@ class span:
         self._record.__enter__()
         s = Span(self.name, next(_ids), parent and parent.id, threading.get_ident(), unit,
                  time.time_ns())
-        if self.device is not None and torch.device(self.device).type == "cuda":
+        if (self.device is not None and torch.device(self.device).type == "cuda"
+                and not torch.cuda.is_current_stream_capturing()):
             s.events = (torch.cuda.Event(enable_timing=True),
                         torch.cuda.Event(enable_timing=True))
             s.events[0].record(torch.cuda.current_stream(self.device))

@@ -1436,3 +1436,101 @@ def test_span_device_ms_on_the_card(cuda_device, work):
         assert s.device_ms is not None and np.isfinite(s.device_ms) and s.device_ms > 0, s
         # the events lie inside the span's host start and the card's completion
         assert s.device_ms <= (done_ns - s.start_ns) / 1e6, s
+
+
+def _predictor(cuda_device, tmp_path, batch, hw, seed=21):
+    """predict_simple's InferenceManager at ``batch`` and ``hw`` on a seeded
+    FootprintNetwork-34 (no checkpoint)."""
+    import types
+
+    from footprints_tpu_torch import predict_simple
+
+    net = FootprintNetwork(34, device=cuda_device,
+                           generator=torch.Generator().manual_seed(seed)).eval()
+
+    class Predictor(predict_simple.InferenceManager):
+        def _load_model(self, model_name, model_load_folder, device, height, width):
+            self.model_manager = types.SimpleNamespace(net=net, device=cuda_device)
+            self.device = cuda_device
+            self.height, self.width = height, width
+
+    return Predictor(None, str(tmp_path), save_visualisations=False, height=hw[0],
+                     width=hw[1], batch_size=batch, device="cuda")
+
+
+def _eager(serve, batch):
+    with torch.inference_mode():
+        return serve._device_forward(torch.from_numpy(batch).cuda()).cpu().numpy()
+
+
+def _graph_counts():
+    from footprints_tpu_torch import telemetry
+
+    totals = telemetry.totals()
+    return tuple(totals[k].count if k in totals else 0
+                 for k in ("predict.graph.capture", "predict.graph.replay"))
+
+
+@pytest.mark.parametrize("hw", [(192, 640), (256, 448)])
+@pytest.mark.parametrize("batch", [1, 4])
+def test_predict_graph_replays_equal_the_eager_forward_bitwise(cuda_device, tmp_path,
+                                                                batch, hw):
+    """predict_simple's forward from its CUDA graph: three distinct batches
+    in a row (the static input is overwritten each time), each equal bit
+    for bit to the eager forward; one capture, a replay a request."""
+    serve = _predictor(cuda_device, tmp_path, batch, hw)
+    rng = np.random.RandomState(22)
+    before = _graph_counts()
+    for r in range(3):
+        x = rng.rand(batch, *hw, 3).astype(np.float32)
+        got = serve._forward(x)
+        assert got.shape == (batch, 4, *hw) and got.dtype == np.float32
+        np.testing.assert_array_equal(got, _eager(serve, x), err_msg=f"request {r}")
+    assert len(serve._graphs) == 1
+    assert tuple(a - b for a, b in zip(_graph_counts(), before)) == (1, 3)
+
+
+def test_predict_graph_a_shape_each(cuda_device, tmp_path):
+    """A second input shape captures a second graph; the first keeps
+    serving its shape."""
+    serve = _predictor(cuda_device, tmp_path, 1, (192, 640))
+    rng = np.random.RandomState(23)
+    before = _graph_counts()
+    for shape in ((1, 192, 640, 3), (1, 256, 448, 3), (1, 192, 640, 3), (2, 192, 640, 3)):
+        x = rng.rand(*shape).astype(np.float32)
+        np.testing.assert_array_equal(serve._forward(x), _eager(serve, x))
+    assert sorted(tuple(s) for s in serve._graphs) == [
+        (1, 192, 640, 3), (1, 256, 448, 3), (2, 192, 640, 3)]
+    assert tuple(a - b for a, b in zip(_graph_counts(), before)) == (3, 4)
+
+
+def test_profiler_lists_the_replayed_forwards_kernels(cuda_device, tmp_path):
+    """torch.profiler over replays of predict_simple's graph lists the
+    forward's kernels: the same kernels, by name and count, as over the
+    eager forward (the benchmark's kernels_per_img and device_idle_pct
+    read them)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    serve = _predictor(cuda_device, tmp_path, 1, (192, 640))
+    x = np.random.RandomState(24).rand(1, 192, 640, 3).astype(np.float32)
+    serve._forward(x)  # the capture
+    _eager(serve, x)  # warm
+
+    def kernels(fn, requests=3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(requests):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CPU}
+        return Counter(e.name() for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == DeviceType.CUDA and e.name() not in names
+                       and not e.name().startswith(("Memcpy", "Memset")))
+
+    replayed, eager = kernels(lambda: serve._forward(x)), kernels(lambda: _eager(serve, x))
+    assert sum(eager.values()) > 0
+    assert replayed == eager

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from footprints_tpu.convert import (footprint_params_from_state_dict,
                                     load_torch_state_dict)
 from footprints_tpu.models import FootprintNetwork as JaxFootprintNetwork
-from footprints_tpu_torch import predict_simple, utils
+from footprints_tpu_torch import predict_simple, telemetry, utils
 from footprints_tpu_torch.model_manager import ModelManager
 from footprints_tpu_torch.models import FootprintNetwork
 
@@ -37,7 +37,11 @@ def _run(weights, out, *extra):
 
 
 def test_predict_cpu_matches_jax_forward(weights, tmp_path):
+    telemetry.reset()
     _run(weights, tmp_path, CYCLIST, "--no_save_vis")
+    # eager on the CPU: no CUDA graph captured or replayed
+    assert telemetry.totals()["predict.forward"].count == 1
+    assert not [k for k in telemetry.totals() if k.startswith("predict.graph")]
     got = np.load(tmp_path / "outputs" / "cyclist.npy")
     assert got.shape == (4, 192, 640) and got.dtype == np.float32
     assert not (tmp_path / "visualisations").exists()

@@ -3,8 +3,9 @@ span enters no ``record_function`` and records nothing but its totals;
 under a profiler session it is a host event of that session, stamped on
 the profiler's clock, with its parent, thread and unit; the ring keeps its
 bound; and the layers record their spans: the dump loop and its writer,
-the train step, predict_simple's call, and the models' construction.
-The card's timing events are tested in test_torch_cuda.py."""
+the train step, predict_simple's call (eager on the CPU), and the models'
+construction.  A CUDA span records no event while its stream captures a
+graph.  The card's timing events are tested in test_torch_cuda.py."""
 
 import threading
 
@@ -63,6 +64,40 @@ def test_off_enters_no_record_function_and_records_only_totals(monkeypatch):
     totals = telemetry.totals()
     assert totals["off"].count == 3 and totals["off.inner"].count == 3
     assert 0 <= totals["off.inner"].seconds <= totals["off"].seconds
+
+
+@pytest.mark.parametrize("capturing", [False, True])
+def test_a_cuda_span_records_its_events_unless_the_stream_is_capturing(monkeypatch,
+                                                                       capturing):
+    """Traced, a span on a CUDA device records a timing event on the
+    current stream as it begins and as it ends; while that stream captures
+    a CUDA graph it records none (the events would be part of the graph)
+    and the span has no device time."""
+    recorded = []
+
+    class Event:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self, stream):
+            recorded.append(stream)
+
+        def query(self):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: "the stream")
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
+
+    def body():
+        with telemetry.span("timed", device="cuda"):
+            pass
+
+    traced(body)
+    s, = named("timed")
+    assert recorded == ([] if capturing else ["the stream", "the stream"])
+    assert (s.events is None) == capturing and s.device_ms is None
+    assert telemetry.totals()["timed"].count == 1
 
 
 def test_a_span_is_a_host_event_of_the_session_on_its_clock():
@@ -272,6 +307,34 @@ def test_predict_records_its_call_forward_and_fetch(tmp_path):
         assert forward.end_ns <= fetch.start_ns
         inner = [s for s in named("encoder", "decoder") if s.parent == forward.id]
         assert [s.name for s in inner] == ["encoder", "decoder", "decoder"]
+
+
+def test_predict_on_the_cpu_runs_eagerly_and_captures_no_graph(tmp_path, monkeypatch):
+    """On the CPU predict_simple's forward is the eager '1/1' forward at
+    every input shape: no CUDA graph, no ``predict.graph.*`` span."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU forward touched a CUDA graph")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", refuse)
+    monkeypatch.setattr(torch.cuda, "graph", refuse)
+    manager = ModelManager(is_inference=True, depth=18, device="cpu")
+
+    class Predictor(predict_simple.InferenceManager):
+        def _load_model(self, model_name, model_load_folder, device, height, width):
+            self.model_manager, self.device = manager, manager.device
+            self.height, self.width = height, width
+
+    serve = Predictor(None, str(tmp_path), save_visualisations=False, height=H, width=W,
+                      batch_size=1, device="cpu")
+    rng = np.random.default_rng(2)
+    for shape in ((1, H, W, 3), (2, H, 2 * W, 3), (1, H, W, 3)):
+        x = rng.random(shape, np.float32)
+        with torch.no_grad():
+            want = manager.net(torch.from_numpy(x), scales=("1/1",))["1/1"]
+        np.testing.assert_array_equal(serve._forward(x), want.permute(0, 3, 1, 2).numpy())
+    assert serve._graphs == {}
+    assert not [k for k in telemetry.totals() if k.startswith("predict.graph")]
+    assert telemetry.totals()["predict.forward"].count == 3
 
 
 def test_building_a_model_adds_to_model_build():
