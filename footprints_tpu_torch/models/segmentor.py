@@ -67,7 +67,9 @@ class PSP(nn.Module):
 
 class SegSkipDecoder(SkipDecoder):
     """The SkipDecoder with 1-channel logit heads at native scales, behind
-    an optional PSP bottleneck."""
+    an optional PSP bottleneck.  The PSP is the span ``decoder.psp``, timed
+    on the card while tracing (telemetry.py), inside the Segmentor's
+    ``decoder``."""
 
     def __init__(self, enc_channels, use_psp):
         c4 = enc_channels[-1]
@@ -80,7 +82,8 @@ class SegSkipDecoder(SkipDecoder):
     def forward(self, features, scales=SCALES):
         """Returns the NCHW logit maps of ``scales``, in that order."""
         if self.use_psp:
-            features = [*features[:-1], self.PSP(features[-1])]
+            with span("decoder.psp", device=features[-1].device):
+                features = [*features[:-1], self.PSP(features[-1])]
         out = super().forward(features, scales)
         return [out[k] for k in scales]
 
@@ -89,7 +92,7 @@ class Segmentor(nn.Module):
     """ResNet encoder + SegSkipDecoder, built on ``device`` and initialised
     from ``generator`` like the FootprintNetwork (the PSP's reduce convs get
     the decoder convs' Kaiming-uniform init), with its spans: ``model.build``,
-    ``encoder`` and ``decoder`` (the PSP inside)."""
+    ``encoder`` and ``decoder`` (the PSP's ``decoder.psp`` inside)."""
 
     def __init__(self, depth: int = 34, use_psp: bool = True, *, device="cpu",
                  generator=None):

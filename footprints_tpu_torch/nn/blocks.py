@@ -113,8 +113,9 @@ class ConvUpsampleAndConcatBlock(nn.Module):
     fused_pre=True runs the pre-concat ConvBlock through the kernel
     (``ConvBlock(fused=True)``).
 
-    On either route, what follows the pre-concat ConvBlock is the span
-    ``decoder.post_concat``, timed on the card while tracing.
+    On either route, the pre-concat ConvBlock is the span
+    ``decoder.pre_concat`` and what follows it the span
+    ``decoder.post_concat``, both timed on the card while tracing.
     """
 
     def __init__(self, in_ch, out_ch, skip_ch=None, *, fused=False, fused_pre=False):
@@ -124,7 +125,8 @@ class ConvUpsampleAndConcatBlock(nn.Module):
         self.post_concat_conv = ConvBlock(out_ch + (skip_ch or out_ch), out_ch)
 
     def forward(self, x, skip):
-        x = self.pre_concat_conv(x)
+        with span("decoder.pre_concat", device=x.device):
+            x = self.pre_concat_conv(x)
         with span("decoder.post_concat", device=x.device):
             if not self.fused:
                 return self.post_concat_conv(torch.cat([upsample_nearest(x, 2), skip], 1))

@@ -40,6 +40,7 @@ from ...ops.fused_conv import (fused_conv3x3, fused_conv3x3_dgrad,
 from ...parallel import (all_reduce_gradients, any_rank, barrier, initialize, make_mesh,
                          mean_over_ranks, rank_seed, replicate_tree, sync_batch_norm)
 from ...parallel.halo import shard_rows, spatial_mesh
+from ...telemetry import span
 from ...train.evaluator import Evaluator
 from ...train.step import (TrainStepConfig, forward_in, make_lr_schedule,
                            make_optimizer, resolve_compute_dtype)
@@ -61,7 +62,12 @@ def build_train_step(net, optimizer, schedule, dtype=torch.float32, mesh=None):
     and 'lr' (a float).  With a distributed ``mesh`` the batch is this
     rank's shard and the gradients are averaged over the ranks
     (train/step.py:build_train_step); on a spatial mesh the forward and the
-    loss run row-sharded, as in ``build_eval_step``."""
+    loss run row-sharded, as in ``build_eval_step``.
+
+    Its spans are train/step.py's (telemetry.py), each with ``step`` as its
+    unit and timed on the card while tracing: ``step.forward``,
+    ``step.loss``, ``step.backward`` and ``step.optimizer``, with
+    ``all_reduce_gradients`` between the last two."""
     params = [p for p in net.parameters() if p.requires_grad]
     rows = spatial_mesh(mesh)
 
@@ -70,15 +76,20 @@ def build_train_step(net, optimizer, schedule, dtype=torch.float32, mesh=None):
         for group in optimizer.param_groups:
             group["lr"] = lr
         net.train()
+        device = batch["image"].device
         with shard_rows(net, mesh):
-            outputs = forward_in(net, batch["image"], dtype)
-            losses = compute_seg_losses(outputs, batch["ground_mask"], batch["labelled_pix"],
-                                        rows)
-        optimizer.zero_grad(set_to_none=True)
-        losses["loss"].backward()
+            with span("step.forward", device=device, unit=step):
+                outputs = forward_in(net, batch["image"], dtype)
+            with span("step.loss", device=device, unit=step):
+                losses = compute_seg_losses(outputs, batch["ground_mask"],
+                                            batch["labelled_pix"], rows)
+        with span("step.backward", device=device, unit=step):
+            optimizer.zero_grad(set_to_none=True)
+            losses["loss"].backward()
         if mesh is not None:
             all_reduce_gradients(mesh, params)
-        optimizer.step()
+        with span("step.optimizer", device=device, unit=step):
+            optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["lr"] = lr
         return metrics

@@ -933,6 +933,83 @@ def test_seg_bf16_step_runs_the_bf16_route(cuda_device):
         assert gpu <= 2 * cpu + 1e-3, (k, gpu, cpu)
 
 
+def _segmentor50_reference():
+    """The plain reference of the benchmark's Segmentor-50 with PSP
+    (``portbench/reference/segmentor_r50.py``), its seg loss, and a seeded
+    state dict for both sides, loaded by path as the benchmark's harness
+    loads them (no JAX there either)."""
+    import os
+    import sys
+
+    portbench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "portbench")
+    if portbench not in sys.path:
+        sys.path.append(portbench)
+    import harness
+    import weights
+    from reference.segmentor_r50 import seg_loss
+
+    config = harness.load_json(portbench, "configs", "segmentor-r50-psp-ade.json")
+
+    def reference(state, device, dtype):
+        net = harness.reference_model(config, "cpu")
+        net.load_state_dict(state)
+        return net.to(device, dtype).train()
+
+    return reference, seg_loss, weights.seeded_state_dict(
+        harness.reference_model(config), 2**31 + 29, "cpu")
+
+
+def test_segmentor50_train_step_matches_the_reference(cuda_device):
+    """One seg train step of Segmentor-50 (PSP) at 128x192, batch 2, on the
+    card through ``build_train_step`` (f32, TF32 off), against the plain
+    reference's seg loss and autograd in f64 on the CPU from the same
+    seeded weights.  At batch 2 train-mode BN's backward cancels, so an f32
+    gradient sits far from f64 at some leaves whatever computes it: the
+    port's may sit no farther than twice the plain reference's own f32
+    step on the card (the whole gradient, and each leaf plus 1e-3); the
+    loss within 1e-5 of f64.  A launch of each kernel a site."""
+    reference, seg_loss, state = _segmentor50_reference()
+    batch = _seg_batch(2, 128, 192, 28)
+
+    def ref_step(device, dtype):
+        net = reference(state, device, dtype)
+        b = {k: v.to(device, dtype) for k, v in batch.items()}
+        loss = seg_loss(net(b["image"].permute(0, 3, 1, 2).contiguous()), b["ground_mask"],
+                        b["labelled_pix"])
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.cpu().double()
+                                      for n, p in net.named_parameters()
+                                      if p.grad is not None}
+
+    loss64, g64 = ref_step("cpu", torch.float64)
+    _, g32 = ref_step(cuda_device, torch.float32)
+    net = Segmentor(50, True, device=cuda_device)
+    net.load_state_dict(state, strict=True)
+    step = seg_trainer.build_train_step(
+        net, tstep.make_optimizer(net, tstep.TrainStepConfig()), lambda s: 1e-4)
+    before = (fc.fused_conv3x3.launches, *_bwd_launches())
+    loss = step(0, {k: v.to(cuda_device) for k, v in batch.items()})["loss"].item()
+    torch.cuda.synchronize()
+    after = (fc.fused_conv3x3.launches, *_bwd_launches())
+    assert abs(loss - loss64) <= 1e-5 * abs(loss64)
+    got = {n: p.grad.cpu().double() for n, p in net.named_parameters() if p.requires_grad}
+    assert got.keys() == g64.keys() == g32.keys() and len(got) == 207
+
+    def whole(g):
+        return (torch.cat([(g[k] - v).flatten() for k, v in g64.items()]).norm()
+                / torch.cat([v.flatten() for v in g64.values()]).norm()).item()
+
+    assert whole(got) <= 2 * whole(g32), (whole(got), whole(g32))
+    for k, v in g64.items():
+        port, plain = ((g[k] - v).norm().item() / max(v.norm().item(), 1e-30)
+                       for g in (got, g32))
+        assert port <= 2 * plain + 1e-3, (k, port, plain)
+    sites = len(kernel_sites(net, 2, 128, 192))
+    assert sites == 10
+    assert tuple(a - b for a, b in zip(after, before)) == (sites, sites, sites, 0, 0)
+
+
 def _footprint_step(device, batch, dtype=torch.float32, compute="float32", heads=True):
     net = FootprintNetwork(18, device=device, generator=torch.Generator().manual_seed(26))
     net.to(dtype)

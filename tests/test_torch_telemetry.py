@@ -3,8 +3,8 @@ span enters no ``record_function`` and records nothing but its totals;
 under a profiler session it is a host event of that session, stamped on
 the profiler's clock, with its parent, thread and unit; the ring keeps its
 bound; and the layers record their spans: the dump loop and its writer,
-the train step, predict_simple's call (eager on the CPU), and the models'
-construction.  A CUDA span records no event while its stream captures a
+both train steps, the decoders' blocks and the PSP, predict_simple's call
+(eager on the CPU), and the models' construction.  A CUDA span records no event while its stream captures a
 graph.  The card's timing events are tested in test_torch_cuda.py."""
 
 import threading
@@ -20,6 +20,7 @@ from footprints_tpu_torch.data.loader import BackgroundWriter
 from footprints_tpu_torch.eval.inference import dump_predictions
 from footprints_tpu_torch.model_manager import ModelManager
 from footprints_tpu_torch.models import FootprintNetwork, Segmentor
+from footprints_tpu_torch.preprocessing.segmentation import trainer as seg_trainer
 from footprints_tpu_torch.train import step as tstep
 
 H, W = 64, 64
@@ -281,6 +282,64 @@ def test_forward_records_the_encoder_stages_and_post_concat_blocks(depth):
     for d in decoders:
         assert sum(s.parent == d.id for s in posts) == 4
     assert telemetry.totals()["decoder.post_concat"].count == 8
+
+
+def test_seg_train_step_records_its_phases_in_order():
+    """The segmentation trainer's step records train/step.py's four phases,
+    with its step as their unit; the Segmentor's spans, the PSP's among
+    them, nest in the forward."""
+    net = Segmentor(18, use_psp=True)
+    step_fn = seg_trainer.build_train_step(
+        net, tstep.make_optimizer(net, tstep.TrainStepConfig()), lambda step: 1e-4)
+    g = torch.Generator().manual_seed(8)
+    batch = {"image": torch.rand(2, H, W, 3, generator=g),
+             "ground_mask": (torch.rand(2, H, W, generator=g) < 0.4).float(),
+             "labelled_pix": (torch.rand(2, H, W, generator=g) < 0.9).float()}
+    traced(lambda: step_fn(6, batch))
+    phases = ("step.forward", "step.loss", "step.backward", "step.optimizer")
+    spans = named(*phases)
+    assert [s.name for s in spans] == list(phases)
+    assert all(s.unit == 6 and s.parent is None for s in spans)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(spans, spans[1:]))
+    inner = named("encoder", "decoder")
+    assert [s.name for s in inner] == ["encoder", "decoder"]
+    assert all(s.parent == spans[0].id and s.unit == 6 for s in inner)
+    (psp,) = named("decoder.psp")
+    assert psp.parent == inner[1].id and psp.unit == 6
+
+
+@pytest.mark.parametrize("use_psp", [True, False])
+def test_segmentor_forward_records_the_psp_and_its_blocks(use_psp):
+    """A Segmentor forward records one ``decoder.psp`` inside its
+    ``decoder`` (none without the PSP), before the decoder's four blocks,
+    each a ``decoder.pre_concat`` then a ``decoder.post_concat``."""
+    net = Segmentor(18, use_psp=use_psp).eval()
+    with torch.no_grad():
+        traced(lambda: net(torch.rand(1, H, W, 3)))
+    (decoder,) = named("decoder")
+    blocks = named("decoder.psp", "decoder.pre_concat", "decoder.post_concat")
+    assert [s.name for s in blocks] == ["decoder.psp"] * use_psp + [
+        "decoder.pre_concat", "decoder.post_concat"] * 4
+    assert all(s.parent == decoder.id for s in blocks)
+
+
+@pytest.mark.parametrize("depth", [18, 50])
+def test_every_decoder_records_its_four_pre_concat_blocks(depth):
+    """One ``decoder.pre_concat`` a decoder block, on the fused route
+    (block3) as on cuDNN's (blocks 1, 2 and 4), each before its block's
+    ``decoder.post_concat``: 4 in each of a FootprintNetwork's decoders."""
+    net = FootprintNetwork(depth).eval()
+    with torch.no_grad():
+        traced(lambda: net(torch.rand(1, H, W, 3)))
+    decoders = named("decoder")
+    pres = named("decoder.pre_concat")
+    assert len(decoders) == 2 and len(pres) == 8
+    for d in decoders:
+        mine = [s for s in named("decoder.pre_concat", "decoder.post_concat")
+                if s.parent == d.id]
+        assert [s.name for s in mine] == ["decoder.pre_concat", "decoder.post_concat"] * 4
+        assert all(a.end_ns <= b.start_ns for a, b in zip(mine, mine[1:]))
+    assert telemetry.totals()["decoder.pre_concat"].count == 8
 
 
 def test_predict_records_its_call_forward_and_fetch(tmp_path):
